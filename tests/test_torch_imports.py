@@ -1,0 +1,142 @@
+"""The port stands alone and runs on the card unless told otherwise.
+
+* With ``jax`` and ``repro`` blocked, ``repro_torch`` and every sub-module
+  import, and so do the modules ``chip_smoke.py`` imports.
+* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
+  ``jax`` or ``repro`` (an AST scan).
+* Entry points resolve ``device=None`` to the card and raise without CUDA;
+  ``device="cpu"`` runs on the CPU.
+* A CPU tensor never reaches the kernel loader, under any backend.
+* ``chip_smoke.py`` exits non-zero with no result line without CUDA, and
+  alone in a directory.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.apps import bayeslope, cough, forest
+from repro_torch.core.arith import (Arith, backend_overrides,
+                                    get_round_backend, set_quire)
+from repro_torch.kernels import build
+from repro_torch.stream import StreamEngine, rpeak_pipeline
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    .removesuffix(".__init__")
+    for p in PKG.rglob("*.py"))
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _run(code, cwd=ROOT, env_extra=None):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               **(env_extra or {}))
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=240)
+
+
+def test_imports_with_jax_and_repro_blocked():
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "sys.path.insert(0, '.')\n"
+        "import chip_smoke\n"
+        "import ast\n"
+        "tree = ast.parse(open('chip_smoke.py').read())\n"
+        "for node in ast.walk(tree):\n"
+        "    if isinstance(node, ast.ImportFrom) and node.module:\n"
+        "        importlib.import_module(node.module)\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok', len(sys.modules))\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_no_jax_or_repro_imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+@pytest.mark.parametrize("call", [
+    lambda dev: StreamEngine({"rpeak": rpeak_pipeline()}, device=dev),
+    lambda dev: cough.make_cough_scorer(
+        "posit16", forest.forest_from_arrays(
+            np.full((1, 3), -1), np.zeros((1, 3)), np.zeros((1, 3)), 1),
+        device=dev),
+    lambda dev: bayeslope.detect_rpeaks(
+        Arith.make("posit10"), np.zeros(600, np.float32), device=dev),
+], ids=["StreamEngine", "make_cough_scorer", "detect_rpeaks"])
+def test_entry_points_need_the_card_unless_told(call, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call(None)
+    call("cpu")
+
+
+def test_cpu_tensors_never_reach_the_kernel_loader(monkeypatch):
+    def no_loader(name):
+        raise AssertionError("a CPU tensor reached the kernel loader")
+    monkeypatch.setattr(build, "load", no_loader)
+    rng = np.random.default_rng(0)
+    audio = rng.standard_normal((2, 2, 4800)).astype(np.float32) * 1e4
+    imu = rng.standard_normal((2, 9, 30)).astype(np.float32)
+    f = forest.forest_from_arrays(np.full((2, 3), -1), np.zeros((2, 3)),
+                                  np.full((2, 3), 0.5), 1)
+    for backend in ("auto", "kernel", "torch", "codec"):
+        with backend_overrides(round_backend=backend):
+            p = cough.make_cough_scorer("posit16", f, device="cpu")(audio,
+                                                                    imu)
+            assert p.shape == (2,) and torch.all(p == 0.5)
+            bayeslope.rpeak_window_scores(Arith.make("posit10"),
+                                          torch.from_numpy(audio[:, 0]))
+
+
+def test_auto_backend_resolves_per_tensor():
+    assert get_round_backend(torch.zeros(1)) == "torch"
+    with backend_overrides(round_backend="kernel"):
+        assert get_round_backend(torch.zeros(1)) == "kernel"
+
+
+def test_deferred_arithmetic_raises():
+    for name in ("fp16", "bfloat16", "fp8e4m3", "fp8e5m2"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Arith.make(name)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        set_quire("on")
+    set_quire("off")
+    Arith.make("fp32")
+
+
+def test_chip_smoke_fails_without_cuda_or_alone(tmp_path):
+    for cwd in (ROOT, tmp_path):
+        script = cwd / "chip_smoke.py"
+        if cwd is tmp_path:
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+        out = subprocess.run(
+            [sys.executable, str(script)], cwd=cwd, capture_output=True,
+            text=True, timeout=240,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
