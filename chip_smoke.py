@@ -6,18 +6,29 @@
 Phases, each fatal on failure:
   1. the card's name and power limit, then the build of the CUDA kernels
      (one nvcc per source, in parallel) and its time;
-  2. each kernel against its plain torch version on the card: the round
-     and the butterfly bitwise, the rounded matmul within one format ulp;
-  3. the main path: a 64-patient fleet (32 cough patients at posit16, 32
-     ECG patients at posit10 with every fourth pinned to posit8) streamed
-     in ragged chunks through ``StreamEngine``, with every window scored
-     exactly once, every kernel's launch count above zero, and the outputs
-     checked against the same windows run by the port on the CPU; then
-     the same fleet once more under ``torch.profiler`` for the device's
-     busy share and its top kernels;
-  4. each kernel's median time per call (CUDA events) and its device
-     time per launch (profiler) beside its bound, its plain version's time
-     and, for the matmul, torch.matmul plus the plain round.
+  2. each kernel against its plain torch version on the card: the round,
+     the butterfly, the codec's decode and encode bitwise, the rounded
+     matmul within one format ulp, the posit-KV attention within
+     rtol = atol = 2e-5;
+  3. the stream path: a 64-patient fleet (32 cough patients at posit16,
+     32 ECG patients at posit10 with every fourth pinned to posit8)
+     streamed in ragged chunks through ``StreamEngine``, with every window
+     scored exactly once, every stream kernel's launch count above zero,
+     and the outputs checked against the same windows run by the port on
+     the CPU; then the same fleet once more under ``torch.profiler`` for
+     the device's busy share and its top kernels;
+  4. each kernel's median time per call (CUDA events) and its device time
+     per launch (profiler) beside its bound, its plain version's time and,
+     where one exists, one library call's;
+  5. the serve path: qwen3-8b at full width (36 layers, random weights from
+     a seeded generator on the card) behind ``ServingEngine`` with two
+     lanes (posit16 weights; posit8 and posit16 KV), 12 requests, every
+     request completed once, the codec and KV-attention kernels launched
+     (36 KV-attention launches per decode step), greedy tokens reproduced
+     by a second engine with eight of its steps under ``torch.profiler``
+     (the device's busy share), the KV-attention kernel
+     held against its plain version on the live cache, and the reduced
+     config's logits on the card against the same weights on the CPU.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -40,6 +51,14 @@ N_WINDOWS = 4
 MAX_BATCH = 32
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+SERVE_ARCH = "qwen3-8b"
+SERVE_BATCH = 4                # slots per lane
+SERVE_MAX_PROMPT = 64
+SERVE_NEW_TOKENS = 32
+SERVE_PROMPTS = 6              # each submitted on both lanes: 12 requests
+PROFILE_STEPS = (8, 16)         # engine steps profiled in phase 5
+KV_TOL = dict(rtol=2e-5, atol=2e-5)
+LOGIT_TOL = dict(rtol=2e-2, atol=2e-2)
 
 
 def log(msg: str) -> None:
@@ -237,6 +256,100 @@ def check_kernels(dev, report):
     return shapes
 
 
+def nan_aware_equal(a, b) -> bool:
+    """Bitwise equal, counting any NaN equal to any NaN (the card's
+    float-to-bf16 conversion writes another NaN payload than the CPU's)."""
+    import torch
+    na, nb = torch.isnan(a.float()), torch.isnan(b.float())
+    idt = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        torch.where(na, 0, a.view(idt)), torch.where(nb, 0, b.view(idt))))
+
+
+def kv_case(gen, B, S, KV, G, D, fmt, dev):
+    """q (B, KV, G, D) and posit K/V bits (B, S, KV, D) of normal values."""
+    import torch
+    from repro_torch.kernels.posit_codec import posit_encode_torch
+    q = torch.randn(B, KV, G, D, generator=gen).to(dev)
+    k = posit_encode_torch(torch.randn(B, S, KV, D, generator=gen).to(dev),
+                           fmt)
+    v = posit_encode_torch(torch.randn(B, S, KV, D, generator=gen).to(dev),
+                           fmt)
+    return q, k, v
+
+
+def check_serve_kernels(dev, report):
+    """Decode and encode bitwise; the posit-KV attention within 2e-5."""
+    import torch
+    from repro_torch.core.formats import PositFormat, get_format
+    from repro_torch.kernels.posit_codec import (posit_decode,
+                                                 posit_decode_torch,
+                                                 posit_encode,
+                                                 posit_encode_torch)
+    from repro_torch.kernels.posit_kv_attention import (
+        posit_kv_attention, posit_kv_attention_torch)
+    gen = torch.Generator().manual_seed(SEED + 2)
+
+    # decode: every posit8/posit16 pattern, random posit(12, 2) bits
+    cases = [(get_format(f"posit{n}"),
+              torch.arange(1 << n).to(torch.int32).to(
+                  get_format(f"posit{n}").storage_dtype).to(dev))
+             for n in (8, 16)]
+    p12 = PositFormat(12, 2)
+    cases.append((p12, torch.randint(-2 ** 15, 2 ** 15, (1 << 20,),
+                                     generator=gen, dtype=torch.int16)
+                  .to(dev)))
+    for fmt, bits in cases:
+        for out_dtype in (torch.float32, torch.bfloat16):
+            k = posit_decode(bits, fmt, out_dtype)
+            p = posit_decode_torch(bits, fmt, out_dtype)
+            torch.cuda.synchronize()
+            if not nan_aware_equal(k, p):
+                raise AssertionError(f"posit_decode {fmt.name} -> "
+                                     f"{out_dtype}: not bitwise equal to "
+                                     f"its plain version")
+        log(f"  posit_decode {fmt.name} {bits.numel()} patterns to f32 and "
+            f"bf16: bitwise")
+    report["posit_decode"]["max_abs_err"] = 0.0
+
+    # encode: random f32 with specials, every lattice point and midpoint
+    for fmt in (get_format("posit8"), get_format("posit16"), p12):
+        for what, x in (("random f32", random_f32(gen, 1 << 20, dev)),
+                        ("lattice+midpoints",
+                         lattice_and_midpoints(fmt, dev))):
+            k, p = posit_encode(x, fmt), posit_encode_torch(x, fmt)
+            torch.cuda.synchronize()
+            if not torch.equal(k, p):
+                raise AssertionError(f"posit_encode {fmt.name} {what}: not "
+                                     f"bitwise equal to its plain version")
+            log(f"  posit_encode {fmt.name} {what} n={x.numel()}: bitwise")
+    report["posit_encode"]["max_abs_err"] = 0.0
+
+    # kv-attention: the serve shape and a long ragged cache
+    err = 0.0
+    for name in ("posit8", "posit16"):
+        fmt = get_format(name)
+        for S in (96, 32768):
+            q, kb, vb = kv_case(gen, 4, S, 8, 4, 128, fmt, dev)
+            lengths = torch.tensor([0, 1, 777, S], dtype=torch.int32,
+                                   device=dev)
+            k = posit_kv_attention(q, kb, vb, lengths, fmt)
+            p = posit_kv_attention_torch(q, kb, vb, lengths, fmt)
+            torch.cuda.synchronize()
+            if not torch.allclose(k, p, **KV_TOL):
+                raise AssertionError(f"posit_kv_attention {name} S={S}: "
+                                     f"{max_abs_err(k, p)} from its plain "
+                                     f"version")
+            if not torch.all(k[0] == 0):
+                raise AssertionError("posit_kv_attention: length 0 row is "
+                                     "not zero")
+            err = max(err, max_abs_err(k, p))
+            log(f"  posit_kv_attention {name} (4, {S}, 8, 128) lengths "
+                f"{lengths.tolist()}: within 2e-5, max abs err "
+                f"{max_abs_err(k, p):.3g}")
+    report["posit_kv_attention"]["max_abs_err"] = err
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -387,6 +500,26 @@ def check_main_path(engine, records, pins, forest, wall, launches):
     return len(results), wall
 
 
+def report_busy(prof, wall: float, what: str, top: int) -> None:
+    """Log the device's busy share of ``wall`` seconds and its top kernels,
+    from the device-side (kernel and memcpy) events of a profile: an
+    operator's own row carries the device time of the kernels it launched,
+    so summing every row would count that time twice."""
+    from torch.autograd import DeviceType
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if not rows:
+        log(f"  {what}: the profiler recorded no device time: not measured")
+        return
+    busy_s = sum(r[0] for r in rows) * 1e-6
+    log(f"  {what}: {wall:.3f} s wall, device busy {busy_s * 1e3:.2f} ms "
+        f"({100 * busy_s / wall:.2f}% of wall)")
+    for us, count, key in sorted(rows, reverse=True)[:top]:
+        log(f"    {us / 1e3:9.3f} ms {count:7d} calls  {key[:70]}")
+
+
 def profile_main_path(dev, forest, counters):
     """The main path once more under ``torch.profiler``: device busy share
     of the host-clock window and the kernels that take the device time.
@@ -399,21 +532,259 @@ def profile_main_path(dev, forest, counters):
         run_main_path(dev, forest, counters)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            rows.append((us, e.count, e.key))
-    busy_s = sum(r[0] for r in rows) * 1e-6
-    if not rows:
-        log("  profiler recorded no device time: not measured")
-        return
-    log(f"  under the profiler: {wall:.3f} s wall, device busy "
-        f"{busy_s * 1e3:.2f} ms ({100 * busy_s / wall:.2f}% of wall)")
-    for us, count, key in sorted(rows, reverse=True)[:6]:
-        log(f"    {us / 1e3:9.3f} ms {count:7d} calls  {key[:70]}")
+    report_busy(prof, wall, "under the profiler", 6)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the serve path
+# ---------------------------------------------------------------------------
+
+def serve_requests(cfg):
+    """SERVE_PROMPTS prompts of 8-64 tokens from a numpy seed, each to be
+    submitted once on each lane with the same options: prompt 1 sampled at
+    temperature 0.8, prompt 2 stopped at an EOS id (set by the caller)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(8, SERVE_MAX_PROMPT + 1, SERVE_PROMPTS)
+    return [dict(prompt=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                 temperature=0.8 if i == 1 else 0.0)
+            for i, n in enumerate(lens)]
+
+
+def serve_engine(model, params, dev):
+    from repro_torch.serve import ServeConfig, ServingEngine
+    return ServingEngine(model, params, ServeConfig(
+        batch_size=SERVE_BATCH, max_prompt=SERVE_MAX_PROMPT,
+        max_new_tokens=SERVE_NEW_TOKENS, seed=SEED), device=dev)
+
+
+def submit_all(engine, reqs):
+    from repro_torch.serve import AGGRESSIVE_SERVE, PAPER_SERVE
+    subs = {}
+    for r in reqs:
+        for lane in (AGGRESSIVE_SERVE, PAPER_SERVE):
+            rid = engine.submit(r["prompt"], temperature=r["temperature"],
+                                eos_id=r.get("eos_id"), policy=lane)
+            subs[rid] = (r, lane)
+    return subs
+
+
+def first_greedy_token(engine, prompt, dev):
+    """The greedy token the engine's prefill gives ``prompt`` (the same on
+    both lanes: their weights are both posit16 and the prefill attends over
+    the fresh bf16 K/V)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import AGGRESSIVE_SERVE
+    lane = engine._lane(AGGRESSIVE_SERVE)
+    logits, _ = lane.model.prefill(
+        lane.params, {"tokens": torch.as_tensor(prompt[None].astype(
+            np.int64), device=dev),
+                      "lengths": torch.tensor([len(prompt)], device=dev)},
+        lane.capacity)
+    return int(torch.argmax(logits[0, -1, :engine.model.cfg.vocab]))
+
+
+def run_serve(dev, cfg, counters):
+    """The serve main path at ``cfg``'s width: returns the completions,
+    the ledger summary, the wall time, the launch counts of the serve run
+    and one captured layer-0 KV-attention call (q, K/V bits, lengths)."""
+    import gc
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    engine = serve_engine(model, params, dev)
+    reqs = serve_requests(cfg)
+    reqs[2]["eos_id"] = first_greedy_token(engine, reqs[2]["prompt"], dev)
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.padded_vocab}; f32 init + posit16 quantization in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated")
+
+    captured = {}
+    real = attn.posit_kv_attention
+
+    def capture(q, k_bits, v_bits, length, fmt, *a, **kw):
+        # layer 0 of the posit8 lane's 6th decode step (lanes alternate)
+        n = captured.setdefault("calls", 0)
+        captured["calls"] = n + 1
+        if n == 10 * cfg.n_layers and "args" not in captured:
+            captured["args"] = (q.clone(), k_bits.clone(), v_bits.clone(),
+                                length.clone(), fmt)
+        return real(q, k_bits, v_bits, length, fmt, *a, **kw)
+
+    subs = submit_all(engine, reqs)
+    attn.posit_kv_attention = capture
+    try:
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        comps = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+    finally:
+        attn.posit_kv_attention = real
+    summary = engine.ledger.summary()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (model, params, reqs, subs, comps, summary, wall, launches,
+            captured.get("args"), peak)
+
+
+def check_serve(cfg, subs, comps, summary, launches):
+    from repro_torch.serve import AGGRESSIVE_SERVE, PAPER_SERVE
+    by_rid = {}
+    for c in comps:
+        if c.rid in by_rid:
+            raise AssertionError(f"request {c.rid} completed twice")
+        by_rid[c.rid] = c
+    if set(by_rid) != set(subs):
+        raise AssertionError(f"completed {sorted(by_rid)}, submitted "
+                             f"{sorted(subs)}")
+    for rid, c in by_rid.items():
+        r, lane = subs[rid]
+        eos = r.get("eos_id")
+        n = len(c.tokens)
+        if c.lane != lane.lane or not 1 <= n <= SERVE_NEW_TOKENS:
+            raise AssertionError(f"request {rid}: {n} tokens on {c.lane}")
+        if c.finish_reason == "eos":
+            ok = eos is not None and c.tokens[-1] == eos
+        else:
+            ok = n == SERVE_NEW_TOKENS and (eos is None
+                                            or eos not in c.tokens)
+        if not ok:
+            raise AssertionError(f"request {rid} finished "
+                                 f"{c.finish_reason} after {n} tokens")
+    p8, p16 = summary[AGGRESSIVE_SERVE.lane], summary[PAPER_SERVE.lane]
+    for lane, row in ((AGGRESSIVE_SERVE.lane, p8), (PAPER_SERVE.lane, p16)):
+        if not row["nj_per_token"] > 0:
+            raise AssertionError(f"lane {lane}: nJ/token {row}")
+    if p8["decode_tokens"] != p16["decode_tokens"] or \
+            2 * p8["kv_read_bytes"] != p16["kv_read_bytes"]:
+        raise AssertionError(f"posit8 lane KV bytes {p8['kv_read_bytes']} "
+                             f"are not half the posit16 lane's "
+                             f"{p16['kv_read_bytes']}")
+    for name in ("posit_decode", "posit_encode", "posit_kv_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the serve path")
+    steps = p8["decode_steps"] + p16["decode_steps"]
+    if launches["posit_kv_attention"] != cfg.n_layers * steps:
+        raise AssertionError(f"posit_kv_attention launched "
+                             f"{launches['posit_kv_attention']} times for "
+                             f"{steps} decode steps of {cfg.n_layers} "
+                             f"layers: the fused route was not taken "
+                             f"every time")
+    return by_rid
+
+
+def serve_reduced_on_card_and_cpu(dev):
+    """The reduced config, run by the port on the card (the kernel route)
+    and on the CPU (the plain route) with the same weights: ragged prefill
+    and four decode steps fed the CPU's greedy tokens; logits within 2e-2
+    and the same greedy tokens wherever the top-2 margin exceeds 4e-2."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import CONFIGS, reduced
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.policy import AGGRESSIVE_POLICY
+    from repro_torch.core.quant import quantize_params
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.convert import params_from_jax
+    cfg = reduced(CONFIGS[SERVE_ARCH])
+    cpu = build_model(cfg, AGGRESSIVE_POLICY, device="cpu")
+    raw = tree_map(lambda t: t.numpy(),
+                   cpu.init(torch.Generator().manual_seed(SEED)))
+    rng = np.random.default_rng(SEED)
+    lens = np.array([5, 3, 9, 16], np.int32)
+    toks = np.zeros((4, 16), np.int64)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(1, cfg.vocab, n)
+    outs = {}
+    for d in ("cpu", dev):
+        model = build_model(cfg, AGGRESSIVE_POLICY, device=d)
+        params = quantize_params(params_from_jax(raw, d),
+                                 get_format("posit16"),
+                                 cast_rest=torch.bfloat16)
+        logits, caches = model.prefill(
+            params, {"tokens": torch.from_numpy(toks).to(d),
+                     "lengths": torch.from_numpy(lens).to(d)}, 24)
+        steps = [logits[:, -1].float().cpu()]
+        for s in range(4):
+            fed = outs["cpu"][s] if d != "cpu" else steps[-1]
+            nxt = fed[:, :cfg.vocab].argmax(-1)
+            logits, caches = model.decode_step(params, nxt[:, None].to(d),
+                                               caches)
+            steps.append(logits[:, -1].float().cpu())
+        outs[d] = steps
+    worst, n_equal, n_clear = 0.0, 0, 0
+    for s, (a, b) in enumerate(zip(outs[dev], outs["cpu"])):
+        if not torch.allclose(a, b, **LOGIT_TOL):
+            raise AssertionError(f"reduced {SERVE_ARCH} step {s}: card "
+                                 f"logits {max_abs_err(a, b):.3g} from "
+                                 f"the CPU's")
+        a, b = a[:, :cfg.vocab], b[:, :cfg.vocab]
+        same = a.argmax(-1) == b.argmax(-1)
+        # a greedy token is held equal where the CPU's top two logits are
+        # more than 4e-2 apart, as in tests/test_torch_serve.py: a closer
+        # pair may swap under bf16 rounding differences of either device
+        top2 = b.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 4e-2
+        if not torch.all(same[clear]):
+            raise AssertionError(f"reduced {SERVE_ARCH} step {s}: greedy "
+                                 f"tokens differ between card and CPU")
+        worst = max(worst, max_abs_err(a, b))
+        n_equal += int(same.sum())
+        n_clear += int(clear.sum())
+    log(f"  reduced {SERVE_ARCH} on the card vs the CPU: prefill + 4 decode "
+        f"steps, logits within {worst:.3g}; greedy tokens equal in "
+        f"{n_equal} of {5 * len(lens)} ({n_clear} with a top-2 margin "
+        f"above 4e-2, all equal)")
+
+
+def profile_serve(dev, model, params, reqs, want, card):
+    """A second engine with the same seed and requests: every greedy token
+    reproduced, and the device's busy share under ``torch.profiler`` over
+    a steady window of engine steps (all slots decoding)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    engine = serve_engine(model, params, dev)
+    subs = submit_all(engine, reqs)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    step, wall = 0, 0.0
+    while not engine.scheduler.idle:
+        if step == PROFILE_STEPS[0]:
+            torch.cuda.synchronize()
+            prof.start()
+            t0 = time.perf_counter()
+        engine.step()
+        if step == PROFILE_STEPS[1] - 1:
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.stop()
+        step += 1
+    got = {c.rid: c.tokens for c in engine.scheduler.pop_completions()}
+    n_greedy = 0
+    for rid, (r, _) in subs.items():
+        if r["temperature"] == 0:
+            if not (got[rid].shape == want[rid].tokens.shape
+                    and (got[rid] == want[rid].tokens).all()):
+                raise AssertionError(f"greedy tokens of request {rid} not "
+                                     f"reproduced by a second engine")
+            n_greedy += 1
+    log(f"  a second engine reproduced the greedy tokens of {n_greedy} "
+        f"requests")
+    report_busy(prof, wall, f"under the profiler, engine steps "
+                f"{PROFILE_STEPS[0]}-{PROFILE_STEPS[1] - 1} (both lanes "
+                f"decoding) ({card})", 8)
 
 
 # ---------------------------------------------------------------------------
@@ -481,6 +852,92 @@ def time_kernels(dev, shapes, report):
         shape=[M, K, N])
 
 
+def time_serve_kernels(dev, report):
+    """The serve kernels at serve-path shapes: decode and encode of one
+    (4096, 12288) FFN weight, the (4, 1, 8, 128) KV write, and the
+    KV-attention at the lanes' cache (S = 96) and at S = 32768.  The
+    KV-attention's library time is ``scaled_dot_product_attention`` on K/V
+    already decoded to f32 (the decode not counted).  Returns the rows
+    that are logged beside the JSON line's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels.posit_codec import (posit_decode,
+                                                 posit_decode_torch,
+                                                 posit_encode,
+                                                 posit_encode_torch)
+    from repro_torch.kernels.posit_kv_attention import (
+        posit_kv_attention, posit_kv_attention_torch)
+    p16 = get_format("posit16")
+    gen = torch.Generator().manual_seed(SEED + 3)
+    rows = []
+
+    w = (torch.randn(4096, 12288, generator=gen) / 64).to(dev)
+    bits = posit_encode(w, p16)
+    n = w.numel()
+    report["posit_decode"].update(
+        ms=cuda_ms(lambda: posit_decode(bits, p16, torch.bfloat16)),
+        device_ms=device_ms(lambda: posit_decode(bits, p16, torch.bfloat16),
+                            "posit_decode_kernel"),
+        plain_ms=cuda_ms(lambda: posit_decode_torch(bits, p16,
+                                                    torch.bfloat16),
+                         reps=2, samples=5),
+        bound_ms=n * (2 + 2) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None, shape=[4096, 12288, "int16->bf16"])
+    report["posit_encode"].update(
+        ms=cuda_ms(lambda: posit_encode(w, p16)),
+        device_ms=device_ms(lambda: posit_encode(w, p16),
+                            "posit_encode_kernel"),
+        plain_ms=cuda_ms(lambda: posit_encode_torch(w, p16), reps=2,
+                         samples=5),
+        bound_ms=n * (4 + 2) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None, shape=[4096, 12288, "f32->int16"])
+    kv = torch.randn(4, 1, 8, 128, generator=gen).to(dev)
+    p8 = get_format("posit8")
+    rows.append(dict(
+        name="posit_encode", shape=[4, 1, 8, 128, "f32->int8"],
+        ms=cuda_ms(lambda: posit_encode(kv, p8)),
+        device_ms=device_ms(lambda: posit_encode(kv, p8),
+                            "posit_encode_kernel"),
+        plain_ms=cuda_ms(lambda: posit_encode_torch(kv, p8)),
+        bound_ms=kv.numel() * 5 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None))
+
+    for name, S in (("posit8", 96), ("posit16", 96), ("posit8", 32768),
+                    ("posit16", 32768)):
+        fmt = get_format(name)
+        q, kb, vb = kv_case(gen, 4, S, 8, 4, 128, fmt, dev)
+        B, KV, G, D = q.shape
+        lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+        nbytes = (2 * q.numel() * 4 + 2 * kb.numel() * kb.element_size()
+                  + lengths.numel() * 4)
+        flops = 4 * B * KV * G * S * D
+        kf = posit_decode(kb, fmt).transpose(1, 2)      # (B, KV, S, D)
+        vf = posit_decode(vb, fmt).transpose(1, 2)
+        mask = (torch.arange(S, device=dev)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        slow = dict(reps=2, samples=5) if S > 1024 else {}
+        row = dict(
+            name="posit_kv_attention", shape=[B, S, KV, D, name],
+            ms=cuda_ms(lambda: posit_kv_attention(q, kb, vb, lengths, fmt)),
+            device_ms=device_ms(
+                lambda: posit_kv_attention(q, kb, vb, lengths, fmt),
+                "posit_kv_attention_kernel"),
+            plain_ms=cuda_ms(lambda: posit_kv_attention_torch(
+                q, kb, vb, lengths, fmt), **slow),
+            bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                         flops / F32_FLOPS_PER_S) * 1e3,
+            bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                      >= flops / F32_FLOPS_PER_S else "operations"),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, kf, vf, attn_mask=mask)))
+        if (name, S) == ("posit8", 96):     # the posit8 lane's cache
+            report["posit_kv_attention"].update(row)
+        else:
+            rows.append(row)
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -493,15 +950,25 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # f32 accumulation in the bf16 products, as the reference's
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     from repro_torch.apps.cough import train_reference_forest
     from repro_torch.kernels import build
+    from repro_torch.kernels.posit_codec import posit_decode, posit_encode
+    from repro_torch.kernels.posit_kv_attention import (
+        posit_kv_attention, posit_kv_attention_torch)
     from repro_torch.kernels.posit_matmul import posit_matmul_round
     from repro_torch.kernels.posit_round import posit_butterfly, posit_round
 
     dev = torch.device("cuda")
     card = card_line()
-    log(f"phase 1: card {card}; torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}")
+    t_start = time.perf_counter()
+
+    def phase(msg):
+        log(f"{msg} (at {time.perf_counter() - t_start:.1f} s)")
+
+    phase(f"phase 1: card {card}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     libs = build.build()
     log(f"  built {', '.join(p.name for p in libs.values())} in "
@@ -521,31 +988,92 @@ def main() -> int:
             name="posit_matmul_round", route="cuda",
             source=f"{src}/csrc/posit_matmul.cu",
             replaces="src/repro/kernels/posit_matmul.py:92"),
+        "posit_decode": dict(
+            name="posit_decode", route="cuda",
+            source=f"{src}/csrc/posit_codec.cu",
+            replaces="src/repro/kernels/posit_decode.py:30"),
+        "posit_encode": dict(
+            name="posit_encode", route="cuda",
+            source=f"{src}/csrc/posit_codec.cu",
+            replaces="src/repro/kernels/posit_encode.py:25"),
+        "posit_kv_attention": dict(
+            name="posit_kv_attention", route="cuda",
+            source=f"{src}/csrc/posit_kv_attention.cu",
+            replaces="src/repro/kernels/posit_kv_attention.py:81"),
     }
-    log("phase 2: kernels against their plain versions")
+    counters = (posit_round, posit_butterfly, posit_matmul_round,
+                posit_decode, posit_encode, posit_kv_attention)
+    stream_kernels = ("posit_round", "posit_butterfly", "posit_matmul_round")
+    phase("phase 2: kernels against their plain versions")
     shapes = check_kernels(dev, report)
+    check_serve_kernels(dev, report)
 
-    log("phase 3: main path, 64-patient fleet")
+    phase("phase 3: stream path, 64-patient fleet")
     t0 = time.perf_counter()
     forest = train_reference_forest(96, 123, n_trees=10, depth=5, device=dev)
     log(f"  forest trained in {time.perf_counter() - t0:.1f} s")
-    counters = (posit_round, posit_butterfly, posit_matmul_round)
     engine, records, pins, wall, launches = run_main_path(dev, forest,
                                                           counters)
-    check_main_path(engine, records, pins, forest, wall, launches)
-    for name, n in launches.items():
-        report[name]["launches"] = n
+    check_main_path(engine, records, pins, forest, wall,
+                    {k: launches[k] for k in stream_kernels})
+    for name in stream_kernels:
+        report[name]["launches"] = launches[name]
+    del engine
     profile_main_path(dev, forest, counters)
 
-    log("phase 4: times (median ms per call, CUDA events)")
+    phase("phase 4: times (median ms per call, CUDA events)")
     time_kernels(dev, shapes, report)
-    for r in report.values():
+    extra = time_serve_kernels(dev, report)
+    for r in [*report.values(), *extra]:
         lib = ("-" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
         log(f"  {r['name']} {r['shape']}: {r['ms']:.4f} ms per call "
             f"({r['device_ms']:.4f} ms of it on the device), bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
             f"{r['plain_ms']:.4f} ms, library {lib}")
+    torch.cuda.empty_cache()
+
+    phase(f"phase 5: serve path, {SERVE_ARCH} at full width, "
+          f"{2 * SERVE_PROMPTS} requests on two lanes")
+    from repro_torch.configs import CONFIGS
+    cfg = CONFIGS[SERVE_ARCH]
+    (model, params, reqs, subs, comps, summary, wall, launches, captured,
+     peak) = run_serve(dev, cfg, counters)
+    by_rid = check_serve(cfg, subs, comps, summary, launches)
+    for name in ("posit_decode", "posit_encode", "posit_kv_attention"):
+        report[name]["launches"] = launches[name]
+    log(f"  {len(comps)} requests completed once each in {wall:.3f} s "
+        f"(host clock), peak {peak:.1f} GiB allocated; launches on the "
+        f"serve path: {launches}")
+    for lane, row in summary.items():
+        tok_s = 1e6 / row["us_per_token"] if row["us_per_token"] else 0.0
+        step_ms = (row["decode_tokens"] * row["us_per_token"] * 1e-3
+                   / row["decode_steps"] if row["decode_steps"] else 0.0)
+        prefill_ms = (row["prefill_tokens"] * row["prefill_us_per_token"]
+                      * 1e-3 / row["requests"] if row["requests"] else 0.0)
+        log(f"  ledger {lane}: {row['requests']} requests, "
+            f"{row['decode_tokens']} decode tokens in "
+            f"{row['decode_steps']} steps, {tok_s:.1f} tokens/s, "
+            f"{step_ms:.2f} ms per decode step, {prefill_ms:.2f} ms per "
+            f"prefill, {row['nj_per_token']:.1f} nJ/token, KV read "
+            f"{row['kv_read_bytes']:.0f} B ({card})")
+    q, kb, vb, lengths, fmt = captured
+    k = posit_kv_attention(q, kb, vb, lengths, fmt)
+    p = posit_kv_attention_torch(q, kb, vb, lengths, fmt)
+    torch.cuda.synchronize()
+    if not torch.allclose(k, p, **KV_TOL):
+        raise AssertionError(f"posit_kv_attention on the live layer-0 cache:"
+                             f" {max_abs_err(k, p):.3g} from its plain "
+                             f"version")
+    log(f"  posit_kv_attention on the live layer-0 cache "
+        f"{tuple(kb.shape)} {fmt.name}, lengths {lengths.tolist()}: within "
+        f"2e-5 of its plain version (max abs err {max_abs_err(k, p):.3g})")
+    profile_serve(dev, model, params, reqs, by_rid, card)
+    del model, params
+    torch.cuda.empty_cache()
+    serve_reduced_on_card_and_cpu(dev)
+    phase("done")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card_line(), flush=True)

@@ -1,0 +1,10 @@
+"""gemma2-2b [dense]: local+global alternating, logit softcaps [arXiv:2408.00118]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="gemma2-2b", family="dense",
+    n_layers=26, d_model=2304, n_heads=8, n_kv_heads=4,
+    d_ff=9216, vocab=256000,
+    head_dim=256, local_window=4096,
+    attn_softcap=50.0, final_softcap=30.0,
+)

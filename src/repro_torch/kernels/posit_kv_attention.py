@@ -1,0 +1,153 @@
+"""One decode step of attention over a posit-quantized KV cache.
+
+``posit_kv_attention(q, k_bits, v_bits, length, fmt, bs)`` takes q
+(B, KV, G, D) f32, the K/V bits as the cache holds them (B, S, KV, D) and
+``length`` as an int or a (B,) int tensor of valid positions per row, and
+returns (B, KV, G, D) f32.  Replaces
+``repro/kernels/posit_kv_attention.py::posit_kv_attention`` together with
+the B × KV vmap of ``repro/kernels/ops.py::kv_attention``.
+
+A CUDA tensor launches ``csrc/posit_kv_attention.cu`` (one thread block
+per row and KV head; K/V rows contiguous and 16-byte aligned) or raises;
+a CPU tensor takes the plain version, which replays
+``repro/kernels/ref.py::kv_attention_oracle`` op for op:
+the same ``block_plan``, the same masking order, the same carry updates.
+The kernel sums its dot products in another order, so the two agree
+within rtol = atol = 2e-5 (the reference's own kernel-vs-oracle
+tolerance), not bitwise.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple, Union
+
+import torch
+
+from repro_torch.core.formats import PositFormat
+from repro_torch.core.posit import decode
+
+from . import build
+
+NEG_INF = -1e30
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+_BITS_DTYPES = (torch.int8, torch.int16, torch.int32)
+_lib = None
+
+
+def _kernels() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = build.load("posit_kv_attention")
+        lib.posit_kv_attention.argtypes = (
+            [_P] * 5 + [_I] * 5 + [_LL] * 4 + [_I, _I, _F, _I, _I, _I, _P])
+        lib.posit_kv_attention.restype = _I
+        _lib = lib
+    return _lib
+
+
+def block_plan(S: int, bs: int) -> Tuple[int, int]:
+    """(bs, S_pad): the block size clamped to the padded sequence and
+    rounded to 8, and S padded up to a whole number of blocks — the plan
+    of ``repro/kernels/posit_kv_attention.py::_block_plan``."""
+    rounded = -(-max(S, 1) // 8) * 8
+    bs = max(8, min(bs, rounded))
+    return bs, -(-S // bs) * bs
+
+
+def _lengths(length, B: int, device) -> torch.Tensor:
+    return torch.as_tensor(length, dtype=torch.int32, device=device
+                           ).reshape(-1).expand(B).contiguous()
+
+
+def posit_kv_attention_torch(q: torch.Tensor, k_bits: torch.Tensor,
+                             v_bits: torch.Tensor,
+                             length: Union[int, torch.Tensor],
+                             fmt: PositFormat, bs: int = 512
+                             ) -> torch.Tensor:
+    """Plain version of the kernel (see the module docstring)."""
+    B, KV, G, D = q.shape
+    S = k_bits.shape[1]
+    q = q.to(torch.float32)
+    if S == 0:
+        return torch.zeros((B, KV, G, D), dtype=torch.float32,
+                           device=q.device)
+    bs, S_pad = block_plan(S, bs)
+    length = torch.clamp(_lengths(length, B, q.device), max=S)
+    m = torch.full((B, KV, G, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, G, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, D), dtype=torch.float32, device=q.device)
+    for i in range(S_pad // bs):
+        lo, hi = i * bs, min((i + 1) * bs, S)
+        pad = (0, 0, 0, 0, 0, bs - (hi - lo))       # zero patterns past S
+        k = decode(torch.nn.functional.pad(k_bits[:, lo:hi], pad), fmt)
+        v = decode(torch.nn.functional.pad(v_bits[:, lo:hi], pad), fmt)
+        logits = torch.einsum("bhgd,bshd->bhgs", q, k) * (D ** -0.5)
+        pos = lo + torch.arange(bs, device=q.device)
+        valid = (pos[None, :] < length[:, None])[:, None, None, :]
+        logits = torch.where(valid, logits, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        p = torch.exp(logits - m_new)
+        p = torch.where(valid, p, 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhgs,bshd->bhgd", p, v)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)
+
+
+def posit_kv_attention(q: torch.Tensor, k_bits: torch.Tensor,
+                       v_bits: torch.Tensor,
+                       length: Union[int, torch.Tensor], fmt: PositFormat,
+                       bs: int = 512) -> torch.Tensor:
+    """Attention of q (B, KV, G, D) over the posit K/V bits (B, S, KV, D)
+    up to each row's ``length``; (B, KV, G, D) f32."""
+    if all(t.device.type == "cpu" for t in (q, k_bits, v_bits)):
+        return posit_kv_attention_torch(q, k_bits, v_bits, length, fmt, bs)
+    B, KV, G, D = q.shape
+    S = k_bits.shape[1]
+    for t in (q, k_bits, v_bits):
+        if not t.is_cuda:
+            raise ValueError(f"posit_kv_attention: tensors must all be on "
+                             f"the card (got {t.device})")
+    if q.dtype != torch.float32 or not q.is_contiguous():
+        raise TypeError("posit_kv_attention: q must be contiguous float32")
+    if k_bits.dtype not in _BITS_DTYPES or v_bits.dtype != k_bits.dtype:
+        raise TypeError(f"posit_kv_attention: K/V bits must share one of "
+                        f"{_BITS_DTYPES}, got {k_bits.dtype}, "
+                        f"{v_bits.dtype}")
+    if (k_bits.shape != (B, S, KV, D) or v_bits.shape != k_bits.shape
+            or v_bits.stride() != k_bits.stride()):
+        raise ValueError(f"posit_kv_attention: K/V {tuple(k_bits.shape)} "
+                         f"must be (B, S, KV, D) = {(B, S, KV, D)} with "
+                         f"one layout")
+    if G * D > 1024 or B * KV >= 2 ** 31 or S >= 2 ** 31:
+        raise ValueError(f"posit_kv_attention: G*D = {G * D} above 1024 "
+                         f"or B*KV/S beyond int32")
+    e = k_bits.element_size()
+    if (k_bits.stride(-1) != 1
+            or any(st * e % 16 for st in (D, *k_bits.stride()[:3]))
+            or k_bits.data_ptr() % 16 or v_bits.data_ptr() % 16):
+        raise ValueError("posit_kv_attention: K/V rows must be contiguous "
+                         "and 16-byte aligned (D * itemsize a multiple of "
+                         "16), as a cache's are")
+    out = torch.empty((B, KV, G, D), dtype=torch.float32, device=q.device)
+    if S == 0 or B * KV == 0:
+        return out.zero_()
+    bs, S_pad = block_plan(S, bs)
+    lengths = _lengths(length, B, q.device)
+    rc = _kernels().posit_kv_attention(
+        q.data_ptr(), k_bits.data_ptr(), v_bits.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), B, KV, G, D, S,
+        *k_bits.stride(), bs, S_pad // bs, D ** -0.5,
+        k_bits.element_size(), fmt.n, fmt.es,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"posit_kv_attention: CUDA launch failed (cudaError {rc})")
+    posit_kv_attention.launches += 1
+    return out
+
+
+posit_kv_attention.launches = 0

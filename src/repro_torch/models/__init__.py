@@ -1,0 +1,21 @@
+"""Model factory: ``ModelConfig.family`` → model class.  This slice of the
+port has the ``dense`` family; the others wait for later slices
+(ROADMAP.md, queue A item 7)."""
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.policy import QuantPolicy
+
+from .transformer import DecoderLM
+
+FAMILIES = {"dense": DecoderLM}
+
+
+def build_model(cfg: ModelConfig, policy: QuantPolicy = QuantPolicy(),
+                device=None):
+    """The model of ``cfg`` on ``device`` (None: the card)."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"model family {cfg.family!r} is not ported yet (ROADMAP.md, "
+            f"queue A item 7)")
+    return FAMILIES[cfg.family](cfg, policy, device=device)

@@ -1,0 +1,284 @@
+"""Attention: GQA/MQA with qk-norm, bias, softcap and local windows, and
+the posit-quantized KV cache for decode — the counterpart of
+``repro.models.attention`` for serving.
+
+Every posit write of the cache goes through the encode kernel's wrapper
+and every posit read through the decode kernel's; a decode step whose
+cache qualifies (``_fused_kv_eligible``) attends through the posit-KV
+attention kernel, which decodes K/V inside the kernel.  The blocked
+``chunked_attention`` and the training path wait for the training slice
+(ROADMAP.md, queue A item 8).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.arith import get_fused_kernels, get_round_backend
+from repro_torch.core.formats import PositFormat
+from repro_torch.core.quant import PositTensor
+from repro_torch.kernels.posit_codec import posit_encode
+from repro_torch.kernels.posit_kv_attention import posit_kv_attention
+
+from .common import dense, make_dense, param, rms_norm, rope, softcap, wval
+
+NEG_INF = -1e30
+BIG_WINDOW = 1 << 30
+_DEFERRED = ("waits for the training slice of the port (ROADMAP.md, queue A "
+             "item 8)")
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class KVCache:
+    """Fixed-capacity KV cache; storage either bf16 tensors or posit bits.
+
+    One layer's cache holds (B, S, KV, D) storage and a ``length`` that is
+    a scalar int32 (every row advances together) or a (B,) vector of
+    per-row valid lengths (the serving engine's continuous-batching
+    slots).  A model's cache stacks the layers along a leading axis
+    ((L, B, S, KV, D) storage, (L,) or (L, B) lengths); ``layer(i)`` gives
+    one layer's view.  Unlike the reference's immutable arrays, ``append``
+    writes into the storage in place and returns a cache that shares it
+    with a new ``length``.
+    """
+
+    k: object  # torch.Tensor (.., B, S, KV, D) bf16  |  PositTensor bits
+    v: object
+    length: torch.Tensor  # int32: () | (B,), stacked (L,) | (L, B)
+
+    @staticmethod
+    def _raw(store) -> torch.Tensor:
+        return store.bits if isinstance(store, PositTensor) else store
+
+    @property
+    def per_row(self) -> bool:
+        return self.length.dim() == 1
+
+    # -- storage ---------------------------------------------------------
+    @staticmethod
+    def create(batch: int, capacity: int, kv_heads: int, head_dim: int,
+               fmt: Optional[PositFormat] = None, per_row: bool = False,
+               device=None, layers: Optional[int] = None) -> "KVCache":
+        """Zeroed storage (bf16, or posit bits of ``fmt``); ``layers``
+        stacks that many layers' caches."""
+        lead = () if layers is None else (layers,)
+        shape = (*lead, batch, capacity, kv_heads, head_dim)
+        length = torch.zeros((*lead, *((batch,) if per_row else ())),
+                             dtype=torch.int32, device=device)
+        if fmt is None:
+            return KVCache(
+                torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                length)
+        return KVCache(
+            PositTensor(torch.zeros(shape, dtype=fmt.storage_dtype,
+                                    device=device), fmt, None),
+            PositTensor(torch.zeros(shape, dtype=fmt.storage_dtype,
+                                    device=device), fmt, None),
+            length)
+
+    def layer(self, i: int) -> "KVCache":
+        """Layer ``i`` of a stacked cache (views of the same storage)."""
+        return KVCache(self.k[i], self.v[i], self.length[i])
+
+    def read(self, dtype: torch.dtype = torch.bfloat16):
+        return wval(self.k, dtype), wval(self.v, dtype)
+
+    @staticmethod
+    def _encode(store, new: torch.Tensor) -> torch.Tensor:
+        if isinstance(store, PositTensor):
+            scaled = new.to(torch.float32)
+            if store.scale is not None:
+                scaled = scaled / store.scale
+            return posit_encode(scaled.contiguous(), store.fmt)
+        return new.to(store.dtype)
+
+    def append(self, k_new: torch.Tensor, v_new: torch.Tensor,
+               new_length=None) -> "KVCache":
+        """Write S_new positions into the cache (in place).
+
+        Scalar-length caches write at ``length`` (every row in lockstep;
+        the start clamps so the block fits, as ``dynamic_update_slice``
+        does).  Per-row caches write one position per row at each row's
+        own ``length`` when S_new == 1 (continuous-batching decode; a row
+        whose length is past the capacity writes nothing, as the
+        reference's scatter drops it), or a fresh block at position 0 when
+        S_new > 1 (right-padded prefill: ``new_length`` then carries the
+        true per-row prompt lengths).
+        """
+        S_new = k_new.shape[1]
+
+        def wr(store, new):
+            enc = self._encode(store, new)
+            raw = self._raw(store)
+            cap = raw.shape[1]
+            if self.per_row and S_new == 1:
+                rows = torch.arange(raw.shape[0], device=raw.device)
+                idx = torch.clamp(self.length, 0, cap - 1).long()
+                keep = ((self.length >= 0) & (self.length < cap))
+                old = raw[rows, idx]
+                raw[rows, idx] = torch.where(keep[:, None, None], enc[:, 0],
+                                             old)
+            elif S_new > cap:
+                raise ValueError(f"KVCache.append: {S_new} positions exceed "
+                                 f"the capacity {cap}")
+            elif self.per_row:
+                raw[:, :S_new] = enc
+            else:
+                start = torch.clamp(self.length, 0, cap - S_new)
+                idx = start + torch.arange(S_new, device=raw.device)
+                raw.index_copy_(1, idx.long(), enc)
+
+        wr(self.k, k_new)
+        wr(self.v, v_new)
+        if new_length is None:
+            new_length = self.length + S_new
+        else:
+            new_length = torch.as_tensor(new_length, dtype=torch.int32,
+                                         device=self.length.device)
+        return KVCache(self.k, self.v, new_length.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Core attention math
+# ---------------------------------------------------------------------------
+
+def plain_attention(q, k, v, *, causal, window, cap, q_offset=0,
+                    kv_len=None):
+    """Reference/materialized path (prefill, and decode off the kernel
+    route).  ``q_offset`` and ``kv_len`` accept scalars (shared by every
+    row) or (B,) vectors — per-row offsets/lengths are how ragged
+    right-padded prompts and continuous-batching decode slots mask their
+    own context."""
+    B, Sq, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    dev = q.device
+    qg = q.reshape(B, Sq, KV, G, D)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
+                          k.to(torch.float32))
+    logits = logits * (D ** -0.5)
+    logits = softcap(logits, cap)
+    # (1|B, Sq) query positions vs (S,) key positions
+    qpos = (torch.as_tensor(q_offset, device=dev).reshape(-1, 1)
+            + torch.arange(Sq, device=dev))
+    kpos = torch.arange(S, device=dev)
+    m = (qpos[:, :, None] - kpos[None, None, :]) < window
+    if causal:
+        m = m & (kpos[None, None, :] <= qpos[:, :, None])
+    if kv_len is not None:
+        m = m & (kpos[None, None, :] < torch.as_tensor(
+            kv_len, device=dev).reshape(-1, 1, 1))
+    logits = torch.where(m[:, None, None], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention layer (params + apply)
+# ---------------------------------------------------------------------------
+
+def init_attention(cfg) -> dict:
+    d, H, KV = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    p = {
+        "wq": make_dense(d, H * hd, bias=cfg.qkv_bias),
+        "wk": make_dense(d, KV * hd, bias=cfg.qkv_bias),
+        "wv": make_dense(d, KV * hd, bias=cfg.qkv_bias),
+        "wo": make_dense(H * hd, d),
+    }
+    if cfg.qk_norm:
+        p["q_gamma"] = param((hd,), init="zeros")
+        p["k_gamma"] = param((hd,), init="zeros")
+    return p
+
+
+def _project_qkv(p, x, cfg, positions):
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = dense(p["wq"], x).reshape(B, S, H, hd)
+    k = dense(p["wk"], x).reshape(B, S, KV, hd)
+    v = dense(p["wv"], x).reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_gamma"])
+        k = rms_norm(k, p["k_gamma"])
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attention_prefill(p, x, cfg, cache: KVCache, *, window=BIG_WINDOW,
+                      causal=True, lengths=None):
+    """Full-sequence attention + cache fill.  Attention uses the fresh bf16
+    k/v; the cache stores the quantized copy that decode will read.
+
+    ``lengths`` (B,) marks right-padded prompts: key positions at or past a
+    row's length are masked out, and the cache records the true per-row
+    lengths instead of the padded S.
+    """
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    cache = cache.append(k, v, new_length=lengths)
+    if S > 1024 and lengths is None:
+        raise NotImplementedError(f"prefill of {S} > 1024 positions without "
+                                  f"lengths runs chunked_attention, which "
+                                  f"{_DEFERRED}")
+    out = plain_attention(q, k, v, causal=causal, window=window,
+                          cap=cfg.attn_softcap, kv_len=lengths)
+    return dense(p["wo"], out.reshape(B, S, -1)), cache
+
+
+def _fused_kv_eligible(cfg, cache: KVCache, S_new: int) -> bool:
+    """Route decode attention through the posit-KV attention kernel?
+
+    As the reference decides: posit bit storage without a scale, one query
+    position, no logit softcap, no local-window layers, and the round
+    backend resolving to the kernel (``auto`` does for a cache on the
+    card) with fused kernels on.  Every other combination keeps the
+    decode-then-attend route below.
+    """
+    return (isinstance(cache.k, PositTensor)
+            and isinstance(cache.v, PositTensor)
+            and cache.k.scale is None and cache.v.scale is None
+            and S_new == 1
+            and cfg.attn_softcap == 0.0
+            and cfg.local_window == 0
+            and get_round_backend(cache.k.bits) == "kernel"
+            and get_fused_kernels())
+
+
+def attention_decode(p, x, cfg, cache: KVCache, *, window=BIG_WINDOW):
+    """Single-token decode against a (possibly posit-quantized) cache.
+
+    Per-row caches mask and position each row by its own length.  Posit
+    caches route through ``posit_kv_attention`` when ``_fused_kv_eligible``
+    holds; the decode-then-attend path is its oracle.
+    """
+    B, S_new, _ = x.shape
+    positions = (cache.length.reshape(-1, 1)
+                 + torch.arange(S_new, device=x.device)).expand(B, S_new)
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    cache = cache.append(k_new, v_new)
+    if _fused_kv_eligible(cfg, cache, S_new):
+        KV, hd = k_new.shape[2], k_new.shape[3]
+        G = q.shape[2] // KV
+        out = posit_kv_attention(
+            q[:, 0].reshape(B, KV, G, hd).to(torch.float32).contiguous(),
+            cache.k.bits, cache.v.bits, cache.length, cache.k.fmt)
+        out = out.reshape(B, 1, KV * G, hd).to(x.dtype)
+    else:
+        k, v = cache.read(dtype=x.dtype)
+        out = plain_attention(
+            q, k, v, causal=True, window=window, cap=cfg.attn_softcap,
+            q_offset=cache.length - S_new, kv_len=cache.length)
+    return dense(p["wo"], out.reshape(B, S_new, -1)), cache
+

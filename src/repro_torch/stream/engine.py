@@ -38,6 +38,25 @@ from .ring import Window, WindowDispatcher
 from .router import PrecisionRouter
 
 
+def bounded_admit(queue: Deque, item, capacity: Optional[int],
+                  dropped: int, warn_at: int, label: str
+                  ) -> Tuple[int, int]:
+    """Append ``item`` to a bounded deque, dropping the OLDEST entry past
+    ``capacity`` with a rate-limited (doubling) warning.  Returns the
+    updated ``(dropped, warn_at)`` counters.  Shared by the engine's result
+    backlog and the serving scheduler's completion queue, so the overflow
+    policy has one implementation."""
+    if capacity is not None and len(queue) >= capacity:
+        queue.popleft()
+        dropped += 1
+        if dropped >= warn_at:
+            warnings.warn(f"{label}: dropped oldest — {dropped} drops so "
+                          f"far", RuntimeWarning, stacklevel=3)
+            warn_at = max(warn_at * 2, 1)
+    queue.append(item)
+    return dropped, warn_at
+
+
 def bucket_size(n: int, max_batch: int) -> int:
     """Smallest power of two ≥ n (capped at ``max_batch``)."""
     if n <= 1:
@@ -264,18 +283,11 @@ class StreamEngine:
 
     def _append_result(self, r: WindowResult) -> None:
         """Retain one result, dropping the oldest past ``result_capacity``."""
-        if (self.result_capacity is not None
-                and len(self.results) >= self.result_capacity):
-            self.results.popleft()
-            self.dropped_results += 1
-            if self.dropped_results >= self._drop_warn_at:
-                warnings.warn(
-                    f"engine results backlog full (result_capacity="
-                    f"{self.result_capacity}); drain with pop_results(): "
-                    f"dropped oldest — {self.dropped_results} drops so far",
-                    RuntimeWarning, stacklevel=3)
-                self._drop_warn_at *= 2
-        self.results.append(r)
+        self.dropped_results, self._drop_warn_at = bounded_admit(
+            self.results, r, self.result_capacity, self.dropped_results,
+            self._drop_warn_at,
+            f"engine results backlog full (result_capacity="
+            f"{self.result_capacity}); drain with pop_results()")
 
     def _track(self, pipe: Pipeline, task: str, fmt: str,
                windows: List[Window], rows: List[Dict[str, np.ndarray]]

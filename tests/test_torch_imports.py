@@ -4,8 +4,10 @@
   import, and so do the modules ``chip_smoke.py`` imports.
 * No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
   ``jax`` or ``repro`` (an AST scan).
-* Entry points resolve ``device=None`` to the card and raise without CUDA;
-  ``device="cpu"`` runs on the CPU.
+* Entry points (the stream engine and window cores, ``build_model``,
+  ``ServingEngine`` and ``python -m repro_torch.launch.serve``) resolve
+  ``device=None`` to the card and raise without CUDA; ``device="cpu"``
+  runs on the CPU.
 * A CPU tensor never reaches the kernel loader, under any backend.
 * ``chip_smoke.py`` exits non-zero with no result line without CUDA, and
   alone in a directory.
@@ -21,9 +23,13 @@ import pytest
 import torch
 
 from repro_torch.apps import bayeslope, cough, forest
+from repro_torch.configs import CONFIGS, reduced
 from repro_torch.core.arith import (Arith, backend_overrides,
                                     get_round_backend, set_quire)
 from repro_torch.kernels import build
+from repro_torch.launch import serve as serve_cli
+from repro_torch.models import build_model
+from repro_torch.serve import ServeConfig, ServingEngine
 from repro_torch.stream import StreamEngine, rpeak_pipeline
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -79,6 +85,12 @@ def test_no_jax_or_repro_imports(path):
             assert top not in ("jax", "jaxlib", "repro"), (path, name)
 
 
+def _serving_engine(dev):
+    model = build_model(reduced(CONFIGS["qwen3-8b"]), device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    return ServingEngine(model, params, ServeConfig(), device=dev)
+
+
 @pytest.mark.parametrize("call", [
     lambda dev: StreamEngine({"rpeak": rpeak_pipeline()}, device=dev),
     lambda dev: cough.make_cough_scorer(
@@ -87,7 +99,13 @@ def test_no_jax_or_repro_imports(path):
         device=dev),
     lambda dev: bayeslope.detect_rpeaks(
         Arith.make("posit10"), np.zeros(600, np.float32), device=dev),
-], ids=["StreamEngine", "make_cough_scorer", "detect_rpeaks"])
+    lambda dev: build_model(reduced(CONFIGS["qwen3-8b"]), device=dev),
+    _serving_engine,
+    lambda dev: serve_cli.main(
+        ["--arch", "qwen3-8b", "--requests", "1", "--new-tokens", "2"]
+        + ([] if dev is None else ["--device", dev])),
+], ids=["StreamEngine", "make_cough_scorer", "detect_rpeaks", "build_model",
+        "ServingEngine", "launch.serve"])
 def test_entry_points_need_the_card_unless_told(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
