@@ -10,8 +10,9 @@ Phases, each fatal on failure:
      the butterfly, the codec's decode and encode bitwise, the rounded
      matmul within one format ulp, the posit-KV attention within
      rtol = atol = 2e-5;
-  3. the stream path: a 64-patient fleet (32 cough patients at posit16,
-     32 ECG patients at posit10 with every fourth pinned to posit8)
+  3. the stream path: a 64-patient fleet (32 cough patients at posit16
+     with every fourth pinned to fp16, 32 ECG patients at posit10 with
+     every fourth pinned to posit8)
      streamed in ragged chunks through ``StreamEngine``, with every window
      scored exactly once, every stream kernel's launch count above zero,
      and the outputs checked against the same windows run by the port on
@@ -28,7 +29,18 @@ Phases, each fatal on failure:
      by a second engine with eight of its steps under ``torch.profiler``
      (the device's busy share), the KV-attention kernel
      held against its plain version on the live cache, and the reduced
-     config's logits on the card against the same weights on the CPU.
+     config's logits on the card against the same weights on the CPU;
+  6. the format study: R-peak F1 over nine formats and cough AUC over
+     three on the card, the paper's orderings asserted, three formats'
+     F1 card against CPU; the quickstart (one decode-fused matmul launch);
+     ``Arith.fma`` (one multiply-add launch per call).
+
+Phase 2 also holds the multiply-add bitwise and the decode-fused matmul
+within 1e-5 of its largest output against their plain versions, the IEEE
+rounding on the card bitwise against the CPU's, and quire-mode dot and
+matmul on the card against the exact oracle; phase 3's fleet pins every
+fourth cough patient to fp16; phase 4 times both new kernels.  Each phase
+prints its wall time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -58,6 +70,18 @@ SERVE_NEW_TOKENS = 32
 SERVE_PROMPTS = 6              # each submitted on both lanes: 12 requests
 PROFILE_STEPS = (8, 16)         # engine steps profiled in phase 5
 KV_TOL = dict(rtol=2e-5, atol=2e-5)
+MATMUL_REL_TOL = 1e-5          # decode-fused matmul: of its largest output
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
+FFN_SHAPE = (64, 4096, 12288)  # qwen3-8b's FFN width, 64 rows
+# the format study at the reference suite's sizes (tests/test_apps.py)
+RPEAK_FORMATS = ("fp32", "posit16", "posit12", "posit10", "posit8",
+                 "bfloat16", "fp16", "fp8e5m2", "fp8e4m3")
+COUGH_FORMATS = ("fp32", "posit16", "fp16")
+# the paper's values, as tests/test_apps.py records them beside its asserts
+PAPER_F1 = {"fp32": "0.989", "posit16": "0.989", "posit10": "0.975",
+            "fp16": "0.948", "fp8e4m3": "fails"}
+PAPER_AUC = {"fp32": "0.919", "posit16": "0.876", "fp16": "0.763"}
+IEEE_FORMATS = ("fp16", "bfloat16", "fp8e5m2", "fp8e4m3")
 LOGIT_TOL = dict(rtol=2e-2, atol=2e-2)
 
 
@@ -261,7 +285,8 @@ def nan_aware_equal(a, b) -> bool:
     float-to-bf16 conversion writes another NaN payload than the CPU's)."""
     import torch
     na, nb = torch.isnan(a.float()), torch.isnan(b.float())
-    idt = torch.int32 if a.dtype == torch.float32 else torch.int16
+    idt = {torch.float64: torch.int64, torch.float32: torch.int32}.get(
+        a.dtype, torch.int16)
     return bool(torch.equal(na, nb)) and bool(torch.equal(
         torch.where(na, 0, a.view(idt)), torch.where(nb, 0, b.view(idt))))
 
@@ -350,13 +375,174 @@ def check_serve_kernels(dev, report):
     report["posit_kv_attention"]["max_abs_err"] = err
 
 
+def ieee_inputs():
+    """The inputs of tests/test_torch_ieee.py: 2^20 random f32 values with
+    specials, every finite fp16 value and midpoint, the fp8 overflow edges;
+    and an f64 grid with the double-rounding cases."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    with np.errstate(over="ignore"):
+        x = (rng.standard_normal(1 << 20)
+             * np.exp2(rng.integers(-150, 128, 1 << 20))).astype(np.float32)
+    half = np.arange(1 << 16, dtype=np.uint16).view(np.float16)
+    half = np.sort(half[np.isfinite(half)].astype(np.float64))
+    mids = (half[:-1] + half[1:]) / 2
+    edges = [448.0, 460.0, 463.9, 464.0, 464.01, 480.0, 500.0, 1e5, 65504.0,
+             65519.99, 65520.0, 57344.0, 61440.0, np.inf, 0.0, 1e-40, 1e-45,
+             2.0 ** -24, 2.0 ** -25, 2.0 ** -9, 2.0 ** -10, 2.0 ** -16, 3e38]
+    e32 = np.asarray(edges + [np.nan])
+    with np.errstate(over="ignore"):
+        f32 = np.concatenate([x, half, mids, e32, -e32]).astype(np.float32)
+    rng = np.random.default_rng(1)
+    g = rng.standard_normal(1 << 16) * np.exp2(rng.integers(-40, 20, 1 << 16))
+    near = np.concatenate([mids * (1 + 2.0 ** -40), mids * (1 - 2.0 ** -40),
+                           mids * (1 + 2.0 ** -30)])
+    crafted = [1 + 2 ** -11 + 2 ** -40, 1 + 2 ** -8 + 2 ** -40,
+               1 + 2 ** -3 + 2 ** -40, 1 + 2 ** -4 + 2 ** -40,
+               2 ** -25 + 2 ** -60, 464.0000001, 463.99999999, 1e300, 1e-300]
+    e64 = np.asarray(edges + crafted + [np.nan])
+    return f32, np.concatenate([g, half, mids, near, e64, -e64])
+
+
+def rel_err(k, p) -> float:
+    """max |k - p| over max |p|."""
+    return float((k - p).abs().max() / p.abs().max())
+
+
+def matmul_case(gen, M, K, N, fmt, dev):
+    """Posit bits of realistic magnitudes: a (M, K) ~ N(0, 1) and
+    b (K, N) ~ N(0, 1/K), encoded on the card."""
+    import torch
+    from repro_torch.kernels.posit_codec import posit_encode_torch
+    a = posit_encode_torch(torch.randn(M, K, generator=gen).to(dev), fmt)
+    b = posit_encode_torch((torch.randn(K, N, generator=gen)
+                            / K ** 0.5).to(dev), fmt)
+    return a, b
+
+
+def check_format_kernels(dev, report):
+    """The multiply-add bitwise, the decode-fused matmul within 1e-5 of its
+    largest output, the IEEE rounding on the card bitwise against the CPU,
+    quire-mode dot and matmul on the card against the exact oracle."""
+    import numpy as np
+    import torch
+    from repro_torch.core.arith import Arith, backend_overrides
+    from repro_torch.core.floatsim import round_to_float
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.posit import decode, encode
+    from repro_torch.core.quire import quire_dot_exact
+    from repro_torch.kernels.posit_matmul import (posit_matmul,
+                                                  posit_matmul_torch)
+    from repro_torch.kernels.posit_round import (posit_fma_round,
+                                                 posit_fma_round_torch)
+    gen = torch.Generator().manual_seed(SEED + 4)
+
+    # multiply-add: random f32 with specials, c = -fl(a*b) (where a
+    # contracted FMA differs), broadcast operands, an f64 grid
+    err = 0.0
+    cases = [(name, [random_f32(gen, 1 << 20, dev) for _ in range(3)])
+             for name in ("posit8", "posit10", "posit16")]
+    a = (torch.randn(1 << 20, generator=gen) * 37).to(dev)
+    b = (torch.randn(1 << 20, generator=gen) * 11).to(dev)
+    cases.append(("posit16", [a, b, -(a * b)]))
+    cases.append(("posit10", [a[:4096, None], b[None, :256],
+                              torch.tensor(0.5, device=dev)]))
+    for name in ("posit24", "posit32"):
+        cases.append((name, [(torch.randn(1 << 18, generator=gen,
+                                          dtype=torch.float64)
+                              * torch.exp2(torch.randint(
+                                  -100, 100, (1 << 18,), generator=gen)
+                                  .double())).to(dev) for _ in range(3)]))
+    for i, (name, ops) in enumerate(cases):
+        fmt = get_format(name)
+        k, p = posit_fma_round(*ops, fmt), posit_fma_round_torch(*ops, fmt)
+        torch.cuda.synchronize()
+        if not bits_equal(k, p):
+            raise AssertionError(f"posit_fma_round {name} case {i}: not "
+                                 f"bitwise equal to its plain version")
+        if i == 3 and not torch.all(k == 0):
+            raise AssertionError("posit_fma_round: a*b - fl(a*b) is not 0: "
+                                 "the multiply-add was contracted")
+        err = max(err, max_abs_err(k, p))
+        log(f"  posit_fma_round {name} {tuple(k.shape)} "
+            f"{str(k.dtype)[6:]}{' c = -fl(a*b)' if i == 3 else ''}: "
+            f"bitwise")
+    report["posit_fma_round"]["max_abs_err"] = err
+
+    # decode-fused matmul: the quickstart's shape and the FFN width
+    err = 0.0
+    for name in ("posit16", "posit8"):
+        fmt = get_format(name)
+        for M, K, N in ((128, 256, 256), FFN_SHAPE):
+            a, b = matmul_case(gen, M, K, N, fmt, dev)
+            k, p = posit_matmul(a, b, fmt), posit_matmul_torch(a, b, fmt)
+            torch.cuda.synchronize()
+            rel = rel_err(k, p)
+            if not rel <= MATMUL_REL_TOL:
+                raise AssertionError(f"posit_matmul {name} ({M}, {K}) x "
+                                     f"({K}, {N}): {rel:.3g} of the largest "
+                                     f"output from its plain version")
+            err = max(err, max_abs_err(k, p))
+            log(f"  posit_matmul {name} ({M}, {K}) x ({K}, {N}): max "
+                f"error {rel:.3g} of the largest output (tolerance "
+                f"{MATMUL_REL_TOL:g}), max abs err {max_abs_err(k, p):.3g}")
+    report["posit_matmul"]["max_abs_err"] = err
+
+    # IEEE rounding: the card's run bitwise against the CPU's
+    f32, f64 = ieee_inputs()
+    for name in IEEE_FORMATS:
+        for x in (torch.from_numpy(f32), torch.from_numpy(f64)):
+            k = round_to_float(x.to(dev), get_format(name)).cpu()
+            p = round_to_float(x, get_format(name))
+            if not nan_aware_equal(k, p):
+                raise AssertionError(f"round_to_float {name} {x.dtype}: the "
+                                     f"card's bits differ from the CPU's")
+        log(f"  round_to_float {name}: {len(f32)} f32 and {len(f64)} f64 "
+            f"values, the card bitwise equal to the CPU")
+
+    # quire mode: dot and matmul on the card against the exact oracle
+    rng = np.random.default_rng(SEED + 4)
+    for name in ("posit8", "posit10", "posit16"):
+        fmt = get_format(name)
+        ar = Arith.make(name)
+
+        def bits(*shape):
+            v = rng.integers(0, 1 << fmt.n, size=shape)
+            v[v == fmt.nar_pattern] = 0
+            return v.astype(np.int64)
+
+        def on_card(v):
+            return decode(torch.from_numpy(v).to(dev), fmt)
+
+        with backend_overrides(quire="on"):
+            for k in (1, 17, 201):
+                a, b = bits(k), bits(k)
+                got = int(encode(ar.dot(on_card(a), on_card(b)), fmt)) \
+                    & fmt.mask
+                if got != quire_dot_exact(a, b, fmt):
+                    raise AssertionError(f"quire dot {name} k={k} on the "
+                                         f"card misses the exact oracle")
+            A, B = bits(5, 37), bits(37, 4)
+            got = (encode(ar.matmul(on_card(A), on_card(B)), fmt).cpu()
+                   .to(torch.int64) & fmt.mask)
+            for i in range(5):
+                for j in range(4):
+                    if int(got[i, j]) != quire_dot_exact(A[i], B[:, j], fmt):
+                        raise AssertionError(f"quire matmul {name} [{i}, "
+                                             f"{j}] on the card misses the "
+                                             f"exact oracle")
+        log(f"  quire-mode {name} dot (k = 1, 17, 201) and (5, 37) x (37, 4) "
+            f"matmul on the card: equal to the exact oracle")
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
 
 def build_fleet(rng):
-    """Per-patient chunk queues: half cough, half ECG, every fourth ECG
-    patient pinned to posit8."""
+    """Per-patient chunk queues: half cough, half ECG; every fourth cough
+    patient pinned to fp16 and every fourth ECG patient to posit8, as the
+    reference's mixed fleet (benchmarks/stream_bench.py) pins them."""
     from repro_torch.data.biosignals import (cough_stream_signals,
                                              ecg_stream_signal, ragged_chunks)
     from repro_torch.stream.pipelines import RPEAK_WINDOW_S
@@ -371,6 +557,8 @@ def build_fleet(rng):
                            list(ragged_chunks(a, rng, 400, 9600))))
             queues.append((pid, "cough", "imu",
                            list(ragged_chunks(i, rng, 4, 60))))
+            if p % 4 == 3:
+                pins[pid] = ("cough", "fp16")
         else:
             pid = f"ecg-{p - n_cough:03d}"
             s, true_r = ecg_stream_signal(N_WINDOWS * RPEAK_WINDOW_S,
@@ -379,7 +567,7 @@ def build_fleet(rng):
             queues.append((pid, "rpeak", "ecg",
                            list(ragged_chunks(s[None, :], rng, 50, 1000))))
             if p % 4 == 3:
-                pins[pid] = "posit8"
+                pins[pid] = ("rpeak", "posit8")
     return queues, pins, records
 
 
@@ -391,8 +579,8 @@ def run_main_path(dev, forest, counters):
     engine = StreamEngine({"cough": cough_pipeline(forest),
                            "rpeak": rpeak_pipeline()},
                           max_batch=MAX_BATCH, device=dev)
-    for pid, fmt in pins.items():
-        engine.register_patient(pid, "rpeak", fmt=fmt)
+    for pid, (task, fmt) in pins.items():
+        engine.register_patient(pid, task, fmt=fmt)
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
@@ -443,8 +631,13 @@ def check_main_path(engine, records, pins, forest, wall, launches):
     log(f"  launches on the main path: {launches}")
 
     # outputs: finite, the expected shapes, and equal to the same windows
-    # run by the port on the CPU (tier 2: p_cough within one posit16 ulp,
+    # run by the port on the CPU (tier 2: p_cough within one format ulp,
     # identical R-peak lists)
+    fmts = {(r.patient, r.fmt) for r in results}
+    for pid, (task, fmt) in pins.items():
+        if (pid, fmt) not in fmts:
+            raise AssertionError(f"{pid} was pinned to {fmt} but not run "
+                                 f"in it")
     p_gpu = {}
     for r in results:
         out = r.outputs
@@ -480,6 +673,33 @@ def check_main_path(engine, records, pins, forest, wall, launches):
     log(f"  cough features of {len(got)} windows within {dist} ulp of the "
         f"CPU run; p_cough equal in {int(np.sum(got == p_cpu))} of "
         f"{len(got)}")
+    # an fp16 patient: features within one fp16 ulp of the CPU run (the
+    # IEEE chains are bitwise; the MFCC's log is each device's libm)
+    pid = "cough-003"
+    a16 = np.stack([records[pid][0][:, w * n_a:(w + 1) * n_a]
+                    for w in range(N_WINDOWS)])
+    i16 = np.stack([records[pid][1][:, w * n_i:(w + 1) * n_i]
+                    for w in range(N_WINDOWS)])
+    ar16 = Arith.make("fp16")
+    f16 = [extract_features(
+        ar16, torch.as_tensor(a16, dtype=torch.float32, device=d),
+        torch.as_tensor(i16, dtype=torch.float32, device=d)).cpu()
+        for d in (engine.device, "cpu")]
+    if not torch.equal(torch.isnan(f16[0]), torch.isnan(f16[1])):
+        raise AssertionError("fp16 cough features: NaNs differ between the "
+                             "card and the CPU")
+    h = [torch.nan_to_num(f, nan=0.0).to(torch.float16).view(torch.int16)
+         .to(torch.int64) for f in f16]
+    h = [torch.where(v < 0, -(v & 0x7FFF), v) for v in h]
+    dist16 = int((h[0] - h[1]).abs().max())
+    if dist16 > 1:
+        raise AssertionError(f"fp16 cough features on the card are {dist16} "
+                             f"fp16 ulp from the CPU run")
+    p16 = make_cough_scorer("fp16", forest, device="cpu")(a16, i16).numpy()
+    g16 = np.asarray([p_gpu[(pid, w)] for w in range(N_WINDOWS)], np.float32)
+    log(f"  fp16 patient {pid}: features within {dist16} fp16 ulp of the "
+        f"CPU run; p_cough equal in {int(np.sum(g16 == p16))} of "
+        f"{len(g16)}")
     ecg = sorted(p for p in records if p.startswith("ecg"))
     peaks_per, f1s = [], []
     for pid in ecg:
@@ -487,7 +707,7 @@ def check_main_path(engine, records, pins, forest, wall, launches):
         peaks_per.append(len(peaks))
         f1s.append(rpeak_f1(peaks, records[pid][1], ECG_FS)[0])
     for pid in (ecg[0], ecg[3]):
-        fmt = pins.get(pid, "posit10")
+        fmt = pins.get(pid, ("rpeak", "posit10"))[1]
         ref = detect_rpeaks(Arith.make(fmt), records[pid][0], device="cpu")
         if engine.tracker_for(pid, "rpeak").peaks != ref:
             raise AssertionError(f"R-peaks of {pid} ({fmt}) differ from the "
@@ -788,6 +1008,128 @@ def profile_serve(dev, model, params, reqs, want, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: the format study, the quickstart and Arith.fma
+# ---------------------------------------------------------------------------
+
+def run_study(dev, counters):
+    """The paper's two format studies on the card at the reference suite's
+    sizes, with its orderings asserted; returns the launch counts of the
+    run and the two result tables."""
+    from repro_torch.apps.bayeslope import run_rpeak_detection
+    from repro_torch.apps.cough import run_cough_detection
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    f1 = run_rpeak_detection(RPEAK_FORMATS, n_subjects=2,
+                             segments_per_subject=5, segment_s=12.0,
+                             device=dev)
+    t1 = time.perf_counter()
+    aucs = run_cough_detection(COUGH_FORMATS, n_windows=160, n_train=320,
+                               device=dev)
+    t2 = time.perf_counter()
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"  R-peak study (9 formats, 2 subjects x 5 segments of 12 s) in "
+        f"{t1 - t0:.1f} s; cough study (3 formats, 160 windows, forest "
+        f"trained on 320) in {t2 - t1:.1f} s")
+    log(f"  {'format':10s} {'F1':>7s} {'paper':>7s}   {'AUC':>7s} "
+        f"{'paper':>7s}")
+    for name in RPEAK_FORMATS:
+        auc = aucs.get(name, {}).get("auc")
+        log(f"  {name:10s} {f1[name]:7.4f} {PAPER_F1.get(name, '-'):>7s}   "
+            f"{'-' if auc is None else f'{auc:.4f}':>7s} "
+            f"{PAPER_AUC.get(name, '-'):>7s}")
+    checks = [("fp32 F1 > 0.95", f1["fp32"] > 0.95),
+              ("posit16 F1 > 0.95", f1["posit16"] > 0.95),
+              ("posit10 F1 > 0.9", f1["posit10"] > 0.9),
+              ("fp16 F1 < posit10 F1", f1["fp16"] < f1["posit10"]),
+              ("fp8e4m3 F1 < 0.1", f1["fp8e4m3"] < 0.1),
+              ("fp32 AUC > 0.85", aucs["fp32"]["auc"] > 0.85),
+              ("posit16 AUC > fp16 AUC",
+               aucs["posit16"]["auc"] > aucs["fp16"]["auc"])]
+    for what, ok in checks:
+        if not ok:
+            raise AssertionError(f"format study: {what} does not hold")
+    log(f"  the paper's orderings hold: {'; '.join(w for w, _ in checks)}")
+    for name in ("posit_round", "posit_butterfly", "posit_matmul_round"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched in the study")
+    log(f"  launches in the study: {launches}")
+
+    # three formats on two segments: the card's F1 equal to the CPU's
+    few = ("posit10", "fp16", "fp8e4m3")
+    kw = dict(n_subjects=1, segments_per_subject=2, segment_s=12.0)
+    card, cpu = (run_rpeak_detection(few, device=d, **kw)
+                 for d in (dev, "cpu"))
+    if card != cpu:
+        raise AssertionError(f"R-peak F1 on the card {card} differs from the "
+                             f"CPU's {cpu}")
+    log(f"  R-peak F1 on 2 segments, card = CPU: {card}")
+    return launches, f1, aucs
+
+
+def run_quickstart(dev, counters):
+    """``repro_torch.quickstart`` on the card: one decode-fused matmul
+    launch, and its numbers against the same steps on the CPU."""
+    import contextlib
+    import io
+    from repro_torch import quickstart
+    for c in counters:
+        c.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        card = quickstart.run(dev)
+    launches = {c.__name__: c.launches for c in counters}
+    for line in out.getvalue().splitlines():
+        log(f"  | {line}")
+    if launches["posit_matmul"] != 1:
+        raise AssertionError(f"quickstart: {launches['posit_matmul']} "
+                             f"posit_matmul launches, expected 1")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = quickstart.run("cpu")
+    for key in ("fig2", "round_err", "kv_ratio"):
+        if card[key] != cpu[key]:
+            raise AssertionError(f"quickstart {key}: {card[key]} on the card, "
+                                 f"{cpu[key]} on the CPU")
+    for key in ("posit16", "fp16"):
+        if card[key].tobytes() != cpu[key].tobytes():
+            raise AssertionError(f"quickstart {key} rounding differs from "
+                                 f"the CPU's")
+    d = abs(card["matmul_rel_err"] - cpu["matmul_rel_err"])
+    if d > 1e-6:
+        raise AssertionError(f"quickstart matmul error {d:.3g} from the "
+                             f"CPU's")
+    log(f"  quickstart on the card: numbers equal to the CPU run (the "
+        f"matmul's error within {d:.2g}); launches {launches}")
+    return launches
+
+
+def run_fma(dev, counters):
+    """``Arith.fma`` on the card: one multiply-add launch per call, each
+    bitwise equal to the CPU's result."""
+    import torch
+    from repro_torch.core.arith import Arith
+    gen = torch.Generator().manual_seed(SEED + 6)
+    a, b, c = (torch.randn(MAX_BATCH, 2, 4096, generator=gen) * 300
+               for _ in range(3))
+    names = ("posit8", "posit10", "posit16")
+    for cnt in counters:
+        cnt.launches = 0
+    outs = [Arith.make(n).fma(a.to(dev), b.to(dev), c.to(dev))
+            for n in names]
+    launches = {cnt.__name__: cnt.launches for cnt in counters}
+    if launches["posit_fma_round"] != len(names):
+        raise AssertionError(f"Arith.fma: {launches['posit_fma_round']} "
+                             f"launches for {len(names)} calls")
+    for n, k in zip(names, outs):
+        if not bits_equal(k.cpu(), Arith.make(n).fma(a, b, c)):
+            raise AssertionError(f"Arith.fma {n} on the card differs from "
+                                 f"the CPU's bits")
+    log(f"  Arith.fma on (32, 2, 4096) f32 in {', '.join(names)}: bitwise "
+        f"equal to the CPU; launches {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -850,6 +1192,51 @@ def time_kernels(dev, shapes, report):
         library_ms=cuda_ms(lambda: posit_round_torch(torch.matmul(a, b),
                                                      fmt)),
         shape=[M, K, N])
+
+
+def time_format_kernels(dev, report):
+    """The multiply-add at the round kernel's main-path shape (32, 2, 4096)
+    f32, all three operands full size; the decode-fused matmul at the FFN
+    width in posit16, beside ``torch.matmul`` on the bf16 operands already
+    decoded (the decode not counted)."""
+    import torch
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels.posit_codec import posit_decode
+    from repro_torch.kernels.posit_matmul import (posit_matmul,
+                                                  posit_matmul_torch)
+    from repro_torch.kernels.posit_round import (posit_fma_round,
+                                                 posit_fma_round_torch)
+    fmt = get_format("posit16")
+    gen = torch.Generator().manual_seed(SEED + 5)
+    a, b, c = ((torch.randn(MAX_BATCH, 2, 4096, generator=gen) * 300).to(dev)
+               for _ in range(3))
+    n = a.numel()
+    report["posit_fma_round"].update(
+        ms=cuda_ms(lambda: posit_fma_round(a, b, c, fmt)),
+        device_ms=device_ms(lambda: posit_fma_round(a, b, c, fmt),
+                            "posit_fma_round_kernel"),
+        plain_ms=cuda_ms(lambda: posit_fma_round_torch(a, b, c, fmt)),
+        bound_ms=4 * n * 4 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None, shape=list(a.shape))
+
+    M, K, N = FFN_SHAPE
+    ab, bb = matmul_case(gen, M, K, N, fmt, dev)
+    nbytes = (ab.numel() + bb.numel()) * ab.element_size() + M * N * 4
+    flops = 2 * M * K * N
+    by_bytes = nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S
+    a16, b16 = posit_decode(ab, fmt, torch.bfloat16), posit_decode(
+        bb, fmt, torch.bfloat16)
+    report["posit_matmul"].update(
+        ms=cuda_ms(lambda: posit_matmul(ab, bb, fmt)),
+        device_ms=device_ms(lambda: posit_matmul(ab, bb, fmt),
+                            "posit_matmul_decode_kernel"),
+        plain_ms=cuda_ms(lambda: posit_matmul_torch(ab, bb, fmt), reps=2,
+                         samples=5),
+        bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                     flops / BF16_FLOPS_PER_S) * 1e3,
+        bound_by="bytes" if by_bytes else "operations",
+        library_ms=cuda_ms(lambda: torch.matmul(a16, b16)),
+        shape=[M, K, N, "posit16"])
 
 
 def time_serve_kernels(dev, report):
@@ -957,8 +1344,10 @@ def main() -> int:
     from repro_torch.kernels.posit_codec import posit_decode, posit_encode
     from repro_torch.kernels.posit_kv_attention import (
         posit_kv_attention, posit_kv_attention_torch)
-    from repro_torch.kernels.posit_matmul import posit_matmul_round
-    from repro_torch.kernels.posit_round import posit_butterfly, posit_round
+    from repro_torch.kernels.posit_matmul import (posit_matmul,
+                                                  posit_matmul_round)
+    from repro_torch.kernels.posit_round import (posit_butterfly,
+                                                 posit_fma_round, posit_round)
 
     dev = torch.device("cuda")
     card = card_line()
@@ -1000,13 +1389,23 @@ def main() -> int:
             name="posit_kv_attention", route="cuda",
             source=f"{src}/csrc/posit_kv_attention.cu",
             replaces="src/repro/kernels/posit_kv_attention.py:81"),
+        "posit_fma_round": dict(
+            name="posit_fma_round", route="cuda",
+            source=f"{src}/csrc/posit_round.cu",
+            replaces="src/repro/kernels/posit_round.py:81"),
+        "posit_matmul": dict(
+            name="posit_matmul", route="cuda",
+            source=f"{src}/csrc/posit_matmul.cu",
+            replaces="src/repro/kernels/posit_matmul.py:57"),
     }
     counters = (posit_round, posit_butterfly, posit_matmul_round,
-                posit_decode, posit_encode, posit_kv_attention)
+                posit_decode, posit_encode, posit_kv_attention,
+                posit_fma_round, posit_matmul)
     stream_kernels = ("posit_round", "posit_butterfly", "posit_matmul_round")
     phase("phase 2: kernels against their plain versions")
     shapes = check_kernels(dev, report)
     check_serve_kernels(dev, report)
+    check_format_kernels(dev, report)
 
     phase("phase 3: stream path, 64-patient fleet")
     t0 = time.perf_counter()
@@ -1023,6 +1422,7 @@ def main() -> int:
 
     phase("phase 4: times (median ms per call, CUDA events)")
     time_kernels(dev, shapes, report)
+    time_format_kernels(dev, report)
     extra = time_serve_kernels(dev, report)
     for r in [*report.values(), *extra]:
         lib = ("-" if r["library_ms"] is None
@@ -1072,6 +1472,15 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
     serve_reduced_on_card_and_cpu(dev)
+
+    phase("phase 6: the format study, the quickstart and Arith.fma")
+    t0 = time.perf_counter()
+    run_study(dev, counters)
+    report["posit_matmul"]["launches"] = run_quickstart(
+        dev, counters)["posit_matmul"]
+    report["posit_fma_round"]["launches"] = run_fma(
+        dev, counters)["posit_fma_round"]
+    log(f"  phase 6 in {time.perf_counter() - t0:.1f} s ({card})")
     phase("done")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -18,16 +18,17 @@ on the fold's device.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.arith import Arith
 from repro_torch.core.device import resolve_device
-from repro_torch.data.biosignals import ECG_FS
+from repro_torch.data.biosignals import ECG_FS, ecg_dataset
 
 from .kmeans import kmeans_1d
+from .metrics import rpeak_f1
 
 # Canonical fold/stream window (the streaming runtime's R-peak hop grid).
 RPEAK_WINDOW_S = 2.0
@@ -349,3 +350,20 @@ def detect_rpeaks(ar: Arith, sig_np: np.ndarray, fs: int = ECG_FS,
         peaks.extend(int(p) for p in fold.push(ar, scores))
     peaks.extend(int(p) for p in fold.finalize(ar))
     return peaks
+
+
+def run_rpeak_detection(fmt_names, n_subjects: int = 8,
+                        segments_per_subject: int = 3,
+                        segment_s: float = 20.0, seed: int = 1,
+                        device=None) -> Dict[str, float]:
+    """The format study of the paper's Fig. 5: {fmt: mean F1} over the
+    ``ecg_dataset`` segments, on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    data = ecg_dataset(n_subjects, segments_per_subject, segment_s, seed)
+    out = {}
+    for name in fmt_names:
+        ar = Arith.make(name)
+        f1s = [rpeak_f1(detect_rpeaks(ar, sig, device=dev), true_r,
+                        ECG_FS)[0] for sig, true_r in data]
+        out[name] = float(np.mean(f1s))
+    return out

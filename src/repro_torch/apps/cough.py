@@ -6,6 +6,8 @@ on this package's own fp32 features.
 """
 from __future__ import annotations
 
+from typing import Dict
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -16,6 +18,7 @@ from repro_torch.data.biosignals import AUDIO_SR, cough_dataset
 
 from . import dsp
 from .forest import Forest, forest_predict, train_forest
+from .metrics import auc, fpr_at_tpr
 
 FFT_N = 4096
 
@@ -71,3 +74,24 @@ def make_cough_scorer(fmt_name: str, forest: Forest, device=None):
         return forest_predict(ar, forest, extract_features(ar, audio, imu))
 
     return scorer
+
+
+def run_cough_detection(fmt_names, n_windows: int = 200, seed: int = 0,
+                        n_train: int = 400, device=None
+                        ) -> Dict[str, Dict[str, float]]:
+    """The format study of the paper's Fig. 4: {fmt: {auc, fpr_at_tpr95}}.
+
+    The forest is trained once, offline, on fp32 features of a disjoint
+    training set, then the whole wearable pipeline is evaluated per format
+    on held-out windows, on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    forest = train_reference_forest(n_train, seed + 1000, forest_seed=seed,
+                                    device=dev)
+    audio, imu, labels = cough_dataset(n_windows, seed)
+    results = {}
+    for name in fmt_names:
+        scores = make_cough_scorer(name, forest, device=dev)(audio, imu)
+        scores = scores.cpu().numpy().astype(np.float64)
+        results[name] = {"auc": auc(scores, labels),
+                         "fpr_at_tpr95": fpr_at_tpr(scores, labels, 0.95)}
+    return results

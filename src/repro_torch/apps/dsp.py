@@ -68,7 +68,12 @@ def _plan_for(ar: Arith, x: torch.Tensor) -> FFTPlan:
 
 
 def _twiddle_mul(ar: Arith, o_re, o_im, wr, wi):
-    """``t = w ⊗ o``: 4 mul + 2 add, each rounded."""
+    """``t = w ⊗ o``: 4 mul + 2 add, each rounded.  Quire mode: each
+    component is one fused two-term accumulation with a single rounding
+    (``Arith.fdot2``; ``−wi`` is exact, posit lattices being symmetric)."""
+    if ar.quire:
+        return (ar.fdot2(wr, o_re, -wi, o_im),
+                ar.fdot2(wr, o_im, wi, o_re))
     return (ar.sub(ar.mul(wr, o_re), ar.mul(wi, o_im)),
             ar.add(ar.mul(wr, o_im), ar.mul(wi, o_re)))
 
@@ -115,7 +120,10 @@ def _to_natural(z_re, z_im, transposed: bool):
 # planes, so a stage is three rounded calls (products, twiddle joins, u ++ v)
 # instead of ten — or, under the kernel backend, one butterfly launch over
 # the whole plane.  The same elementary rounded ops in the same order as
-# ``_butterfly``, hence bit-identical to the unfused loop.
+# ``_butterfly``, hence bit-identical to the unfused loop.  Under quire mode
+# the twiddle join is two fused two-term accumulations per output, as in
+# the unfused quire butterfly; the butterfly kernel, which rounds every
+# product, is bypassed.
 # ---------------------------------------------------------------------------
 
 def _fused_stage(ar: Arith, z: torch.Tensor, wr: torch.Tensor,
@@ -126,8 +134,12 @@ def _fused_stage(ar: Arith, z: torch.Tensor, wr: torch.Tensor,
     else:
         e, o = z[..., : R // 2, :], z[..., R // 2:, :]
     ax = -2 if tr else -1
+    shp = (*([1] * nb), -1, 1) if tr else (*([1] * nb), 1, -1)
+    if ar.quire:
+        t = torch.stack(_twiddle_mul(ar, o[0], o[1], wr.reshape(shp),
+                                     wi.reshape(shp)))
+        return ar.rnd(torch.cat([e + t, e - t], dim=ax))
     if get_round_backend(z) == "kernel":
-        shp = (*([1] * nb), -1, 1) if tr else (*([1] * nb), 1, -1)
         u_re, u_im, v_re, v_im = posit_butterfly(
             e[0].contiguous(), e[1].contiguous(), o[0].contiguous(),
             o[1].contiguous(), wr.reshape(shp), wi.reshape(shp), ar.fmt)
@@ -152,8 +164,11 @@ def _fused_final_rstage(ar: Arith, z: torch.Tensor, plan: FFTPlan
     wr, wi = plan.stages[-1]
     e_re, o_re = z[0, ..., 0, :], z[0, ..., 1, :]
     e_im, o_im = z[1, ..., 0, :], z[1, ..., 1, :]
-    P = rnd(torch.stack([wr * o_re, wi * o_im, wr * o_im, wi * o_re]))
-    t = rnd(torch.stack([P[0] - P[1], P[2] + P[3]]))
+    if ar.quire:
+        t = torch.stack(_twiddle_mul(ar, o_re, o_im, wr, wi))
+    else:
+        P = rnd(torch.stack([wr * o_re, wi * o_im, wr * o_im, wi * o_re]))
+        t = rnd(torch.stack([P[0] - P[1], P[2] + P[3]]))
     u = rnd(torch.stack([e_re + t[0], e_im + t[1]]))
     ny = rnd(torch.stack([e_re[..., :1] - t[0][..., :1],
                           e_im[..., :1] - t[1][..., :1]]))

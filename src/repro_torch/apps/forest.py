@@ -107,7 +107,8 @@ def forest_predict(ar: Arith, forest: Forest, X: torch.Tensor) -> torch.Tensor:
         nxt = torch.where(go_left, 2 * node + 1, 2 * node + 2)
         node = torch.where(f < 0, node, nxt)
     probs = value[trees, node]                          # (B, T)
-    # vote aggregation as a rounded matmul row: one wide accumulation
-    # rounded once (×1 products are exact)
+    # vote aggregation as a rounded matmul row (×1 products are exact):
+    # posits take one wide accumulation rounded once (exact under quire
+    # mode), IEEE formats the per-MAC rounded chain
     votes = ar.matmul(probs, torch.ones((T, 1), dtype=dt, device=dev))[..., 0]
     return ar.div(votes, float(T))

@@ -31,7 +31,9 @@ def kmeans_1d(ar: Arith, x: torch.Tensor, k: int = 2, iters: int = 12,
         for j in range(k):
             m = assign == j
             cnt = torch.clamp(m.sum(), min=1).to(x.dtype)
-            # pre-scaled accumulation: divide members by the count, THEN sum
+            # pre-scaled accumulation: divide members by the count, THEN
+            # sum (keeps the running sum inside the format's range — IEEE
+            # formats have no quire, so their sums round per add)
             contrib = ar.div(torch.where(m, x, torch.zeros_like(x)), cnt)
             new.append(ar.sum(contrib, axis=-1))
         cent = torch.stack(new)

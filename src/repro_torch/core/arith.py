@@ -1,7 +1,8 @@
 """Format-parametrized arithmetic: every op computes wide, then rounds.
 
-The counterpart of ``repro.core.arith`` for posit formats and exact fp32.
-Two switches select how the rounded ops are realized:
+The counterpart of ``repro.core.arith``, for every registered format: the
+posits, the narrow IEEE formats (fp16, bf16, fp8e5m2, fp8e4m3) and exact
+fp32.  Three switches select how the rounded ops are realized:
 
 * ``set_round_backend`` — how a posit rounding is computed: ``"kernel"``
   (the CUDA kernels of ``repro_torch.kernels``; a CPU tensor takes each
@@ -11,33 +12,41 @@ Two switches select how the rounded ops are realized:
 * ``set_fused_kernels`` — fused one-launch-per-stage hot paths (the FFT
   stage loop, the matmul kernel route) or the retained per-op oracles.
   Fused and unfused paths are bit-identical.
+* ``set_quire`` (or ``REPRO_QUIRE=on`` in the environment, read at import
+  as the reference reads it) — posit reductions (``dot``/``sum``/
+  ``cumsum``/``matmul``/``fdot2`` and the FFT twiddle joins) accumulate
+  exactly through ``core.quire``'s compensated sums and round once, instead
+  of rounding a wide device sum.  It changes posit accumulation bits (that
+  is its point); off by default.
 
-Not in this slice: the narrow IEEE formats (fp16, bf16, fp8 — their
-sequential rounded reductions) and quire mode.  Both raise
-``NotImplementedError`` instead of running another arithmetic; ROADMAP.md
-queue A lists them.
+IEEE formats have no quire: their reductions round after every add, in a
+fixed sequential order (``_ieee_accumulate``), so they are bitwise the
+reference's on any device.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 from typing import Union
 
 import torch
 
 from repro_torch.kernels.posit_matmul import posit_matmul_round
-from repro_torch.kernels.posit_round import posit_round
+from repro_torch.kernels.posit_round import posit_fma_round, posit_round
 
+from .floatsim import round_to_float
 from .formats import FloatFormat, PositFormat, get_format
 from .posit import round_to_posit, round_to_posit_codec
+from .quire import (comp_cumsum, comp_dot, comp_sum, product_eft_needed,
+                    two_prod, two_sum)
 
 _ROUND_BACKENDS = ("auto", "torch", "kernel", "codec")
 _round_backend = "auto"
 _FUSED_MODES = ("auto", "on", "off")
 _fused_kernels = "auto"
-
-_DEFERRED = ("not ported yet: the narrow IEEE formats and quire mode come "
-             "in a later slice of the port (ROADMAP.md, queue A item 1)")
+_QUIRE_MODES = ("auto", "on", "off")
+_quire = os.environ.get("REPRO_QUIRE", "auto")
 
 
 def set_round_backend(name: str) -> None:
@@ -69,30 +78,41 @@ def get_fused_kernels() -> bool:
 
 
 def set_quire(name: str) -> None:
-    """Quire mode is deferred; only "off"/"auto" (its default) are taken."""
-    if name not in ("auto", "off"):
-        raise NotImplementedError(f"quire mode {name!r}: {_DEFERRED}")
+    """Select quire-exact posit accumulation ("on") vs wide-sum ("off");
+    "auto" is off."""
+    if name not in _QUIRE_MODES:
+        raise ValueError(f"quire mode {name!r} not in {_QUIRE_MODES}")
+    global _quire
+    _quire = name
+
+
+def get_quire() -> bool:
+    return _quire == "on"
 
 
 def fusion_cache_key() -> tuple:
-    """Key for caches of per-format callables, so an A/B toggle of either
+    """Key for caches of per-format callables, so an A/B toggle of any
     switch builds a fresh callable."""
-    return (_round_backend, get_fused_kernels())
+    return (_round_backend, get_fused_kernels(), get_quire())
 
 
 @contextlib.contextmanager
-def backend_overrides(fused: str = None, round_backend: str = None):
+def backend_overrides(fused: str = None, round_backend: str = None,
+                      quire: str = None):
     """Temporarily select backend realizations; restores on every exit."""
-    prev_fused, prev_rb = _fused_kernels, _round_backend
+    prev_fused, prev_rb, prev_q = _fused_kernels, _round_backend, _quire
     try:
         if fused is not None:
             set_fused_kernels(fused)
         if round_backend is not None:
             set_round_backend(round_backend)
+        if quire is not None:
+            set_quire(quire)
         yield
     finally:
         set_fused_kernels(prev_fused)
         set_round_backend(prev_rb)
+        set_quire(prev_q)
 
 
 def _round_posit_dispatch(x: torch.Tensor, fmt: PositFormat) -> torch.Tensor:
@@ -115,10 +135,6 @@ class Arith:
 
     fmt: Union[PositFormat, FloatFormat]
 
-    def __post_init__(self) -> None:
-        if isinstance(self.fmt, FloatFormat) and self.fmt.name != "fp32":
-            raise NotImplementedError(f"format {self.fmt.name!r}: {_DEFERRED}")
-
     @staticmethod
     def make(name: str) -> "Arith":
         return Arith(get_format(name))
@@ -133,14 +149,26 @@ class Arith:
 
     @property
     def exact(self) -> bool:
-        return not self.is_posit
+        return isinstance(self.fmt, FloatFormat) and self.fmt.name == "fp32"
+
+    @property
+    def quire(self) -> bool:
+        """Quire-exact accumulation is live for this context (posits only:
+        IEEE formats have no quire, fp32 reductions are the wide
+        reference)."""
+        return self.is_posit and get_quire()
+
+    def _product_eft(self, dtype: torch.dtype) -> bool:
+        return product_eft_needed(self.fmt, dtype)
 
     # -- rounding ------------------------------------------------------------
     def rnd(self, x) -> torch.Tensor:
         x = _t(x)
-        if self.exact:
-            return x if x.dtype == torch.float32 else x.float().to(x.dtype)
-        return _round_posit_dispatch(x, self.fmt)
+        if self.exact and x.dtype == torch.float32:
+            return x
+        if self.is_posit:
+            return _round_posit_dispatch(x, self.fmt)
+        return round_to_float(x, self.fmt)
 
     # -- elementary ops (each correctly rounded to the format) ----------------
     def add(self, a, b):
@@ -158,8 +186,32 @@ class Arith:
     def sqrt(self, a):
         return self.rnd(torch.sqrt(_t(a)))
 
+    def fma(self, a, b, c):
+        """``rnd(a·b + c)``, one rounding of the product and sum computed
+        separately in the operands' float type (the reference's bits).  A
+        posit context under the kernel backend makes it one
+        ``posit_fma_round`` launch."""
+        a, b, c = _t(a), _t(b), _t(c)
+        on = next((t for t in (a, b, c) if t.is_cuda), a)
+        if self.is_posit and get_round_backend(on) == "kernel":
+            return posit_fma_round(a, b, c, self.fmt)
+        return self.rnd(a * b + c)
+
     def fdot2(self, a, b, c, d):
-        """``rnd(a·b + c·d)`` as three rounded ops (mul, mul, add)."""
+        """``rnd(a·b + c·d)`` — the FFT twiddle-join primitive.  Quire mode
+        accumulates the two products exactly (``two_sum``, with
+        ``two_prod`` where a product outruns the accumulator) and rounds
+        once; otherwise three rounded ops (mul, mul, add)."""
+        a, b, c, d = (_t(v) for v in (a, b, c, d))
+        if self.quire:
+            if self._product_eft(torch.promote_types(
+                    torch.result_type(a, b), torch.result_type(c, d))):
+                p1, e1 = two_prod(a, b)
+                p2, e2 = two_prod(c, d)
+                s, e = two_sum(p1, p2)
+                return self.rnd(s + (e + (e1 + e2)))
+            s, e = two_sum(a * b, c * d)
+            return self.rnd(s + e)
         return self.add(self.mul(a, b), self.mul(c, d))
 
     # -- transcendental: libm computes wide, the result is stored in format --
@@ -169,24 +221,78 @@ class Arith:
     def log(self, a):
         return self.rnd(torch.log(_t(a)))
 
-    # -- reductions: ONE rounding of a wide device sum ------------------------
+    def sin(self, a):
+        return self.rnd(torch.sin(_t(a)))
+
+    def cos(self, a):
+        return self.rnd(torch.cos(_t(a)))
+
+    def tanh(self, a):
+        return self.rnd(torch.tanh(_t(a)))
+
+    # -- reductions ----------------------------------------------------------
+    #
+    # IEEE formats round after every partial add, along axis 0 in order.
+    # The reference realizes that chain two ways with identical bits (an
+    # unrolled chain for K ≤ 64 when fused, a per-step scan otherwise); in
+    # eager torch both are this one Python loop of elementwise rounded ops.
+
+    def _ieee_accumulate(self, moved: torch.Tensor, keep_prefixes: bool):
+        """Rounded sequential accumulation over axis 0 of ``moved``: the
+        final accumulator, or every prefix when ``keep_prefixes``."""
+        acc = torch.zeros(moved.shape[1:], dtype=moved.dtype,
+                          device=moved.device)
+        outs = []
+        for k in range(moved.shape[0]):
+            acc = self.rnd(acc + moved[k])
+            outs.append(acc)
+        if keep_prefixes:
+            return torch.stack(outs) if outs else torch.zeros_like(moved)
+        return acc
+
     @staticmethod
     def _flatten_if_axis_none(a, axis):
+        """``axis=None`` reductions ravel first on every path, so all arms
+        reduce the same element order."""
         if axis is None:
             return a.reshape(-1), -1
         return a, axis
 
     def dot(self, a, b, axis=-1):
-        prod, axis = self._flatten_if_axis_none(_t(a) * _t(b), axis)
-        return self.rnd(torch.sum(prod, dim=axis))
+        """Posits and fp32: one rounding of a wide accumulation (exact
+        under quire mode); IEEE: a rounded product and a rounded add per
+        MAC, in order."""
+        a, b = _t(a), _t(b)
+        if self.quire:
+            s, c = comp_dot(a, b, axis=axis, product_eft=self._product_eft(
+                torch.result_type(a, b)))
+            return self.rnd(s + c)
+        if self.is_posit or self.exact:
+            prod, axis = self._flatten_if_axis_none(a * b, axis)
+            return self.rnd(torch.sum(prod, dim=axis))
+        prod, axis = self._flatten_if_axis_none(self.rnd(a * b), axis)
+        return self._ieee_accumulate(torch.movedim(prod, axis, 0), False)
 
     def sum(self, a, axis=-1):
         a, axis = self._flatten_if_axis_none(_t(a), axis)
-        return self.rnd(torch.sum(a, dim=axis))
+        if self.quire:
+            s, c = comp_sum(a, axis=axis)
+            return self.rnd(s + c)
+        if self.is_posit or self.exact:
+            return self.rnd(torch.sum(a, dim=axis))
+        return self._ieee_accumulate(torch.movedim(a, axis, 0), False)
 
     def cumsum(self, a, axis=-1):
+        """Rounded prefix sums: posits round each wide prefix once (exact
+        per prefix under quire mode); IEEE rounds after every add."""
         a, axis = self._flatten_if_axis_none(_t(a), axis)
-        return self.rnd(torch.cumsum(a, dim=axis))
+        if self.quire:
+            s, c = comp_cumsum(a, axis=axis)
+            return self.rnd(s + c)
+        if self.is_posit or self.exact:
+            return self.rnd(torch.cumsum(a, dim=axis))
+        out = self._ieee_accumulate(torch.movedim(a, axis, 0), True)
+        return torch.movedim(out, 0, axis)
 
     def mean(self, a, axis=-1):
         a = _t(a)
@@ -194,16 +300,30 @@ class Arith:
         return self.div(self.sum(a, axis=axis), float(cnt))
 
     def matmul(self, a, b):
-        """Rounded matrix product ``a (..., K) · b (K, N) → (..., N)``: one
-        wide product per output, rounded once.  Under the kernel backend the
-        product and its rounding are one ``posit_matmul_round`` launch."""
+        """Rounded matrix product ``a (..., K) · b (K, N) → (..., N)``.
+
+        * posit: one wide product per output, rounded once — under the
+          kernel backend one ``posit_matmul_round`` launch; under quire
+          mode an exact compensated K-accumulation per output instead.
+        * IEEE: a rounded product and a rounded add per MAC, sequentially
+          along K.
+        * fp32: the plain device matmul.
+        """
         a, b = _t(a), _t(b)
         K, N = b.shape
         batch = a.shape[:-1]
-        a2 = a.reshape(-1, K)
-        if (self.is_posit and get_round_backend(a2) == "kernel"
-                and get_fused_kernels()):
-            out = posit_matmul_round(a2.contiguous(), b.contiguous(),
-                                     self.fmt)
-            return out.reshape(*batch, N)
-        return self.rnd((a2 @ b).reshape(*batch, N))
+        if self.is_posit or self.exact:
+            a2 = a.reshape(-1, K)
+            if self.quire:
+                s, c = comp_dot(a2[:, :, None], b[None, :, :], axis=1,
+                                product_eft=self._product_eft(
+                                    torch.result_type(a2, b)))
+                return self.rnd(s + c).reshape(*batch, N)
+            if (self.is_posit and get_round_backend(a2) == "kernel"
+                    and get_fused_kernels()):
+                out = posit_matmul_round(a2.contiguous(), b.contiguous(),
+                                         self.fmt)
+                return out.reshape(*batch, N)
+            return self.rnd((a2 @ b).reshape(*batch, N))
+        prod = self.rnd(a[..., :, None] * b)            # (..., K, N)
+        return self._ieee_accumulate(torch.movedim(prod, -2, 0), False)

@@ -56,6 +56,11 @@ class PositFormat:
         return (self.n - 2) << self.es
 
     @property
+    def max_fraction_bits(self) -> int:
+        """Fraction bits with the shortest possible regime (2 bits)."""
+        return max(self.n - 3 - self.es, 0)
+
+    @property
     def maxpos(self) -> float:
         return float(2.0 ** self.max_scale)
 

@@ -5,9 +5,8 @@ of the energy argument); ``dequant`` is the PRAU-decode analogue executed
 at compute time, through the codec kernel's wrapper (``posit_decode``: the
 CUDA kernel for a tensor on the card, its plain version on the CPU).
 ``quantize_params`` encodes a whole parameter tree through ``posit_encode``
-with the reference's leaf rules.  ``fake_quant`` rounds onto a posit
-lattice with a straight-through gradient; the narrow IEEE formats wait for
-a later slice of the port.
+with the reference's leaf rules.  ``fake_quant`` rounds onto any format's
+lattice (posit or narrow IEEE) with a straight-through gradient.
 """
 from __future__ import annotations
 
@@ -18,7 +17,7 @@ import torch
 
 from repro_torch.kernels.posit_codec import posit_decode, posit_encode
 
-from .arith import _DEFERRED
+from .floatsim import round_to_float
 from .formats import PositFormat, get_format
 from .posit import round_to_posit
 
@@ -82,7 +81,9 @@ def dequantize(t: PositTensor, dtype: torch.dtype = torch.float32
 class _FakeQuant(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, fmt):
-        return round_to_posit(x, fmt, dtype=x.dtype)
+        if isinstance(fmt, PositFormat):
+            return round_to_posit(x, fmt, dtype=x.dtype)
+        return round_to_float(x, fmt)
 
     @staticmethod
     def backward(ctx, g):
@@ -91,10 +92,7 @@ class _FakeQuant(torch.autograd.Function):
 
 def fake_quant(x: torch.Tensor, fmt_name: str) -> torch.Tensor:
     """Round onto the format lattice; gradient passes straight through."""
-    fmt = get_format(fmt_name)
-    if not isinstance(fmt, PositFormat):
-        raise NotImplementedError(f"fake_quant({fmt_name!r}): {_DEFERRED}")
-    return _FakeQuant.apply(x, fmt)
+    return _FakeQuant.apply(x, get_format(fmt_name))
 
 
 # ---------------------------------------------------------------------------

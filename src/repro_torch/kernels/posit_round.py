@@ -1,8 +1,12 @@
-"""Posit rounding on the float datapath: the elementwise round and the
-rounded radix-2 FFT butterfly, as CUDA kernels with plain torch versions.
+"""Posit rounding on the float datapath: the elementwise round, the rounded
+multiply-add and the rounded radix-2 FFT butterfly, as CUDA kernels with
+plain torch versions.
 
 * ``posit_round``     — x → nearest posit(x), f32 or f64, any shape.
   Replaces ``repro/kernels/posit_round.py::posit_round_2d``.
+* ``posit_fma_round`` — round(a·b + c) with the product and the sum each
+  computed in the float type and one posit rounding at the end, operands
+  broadcast.  Replaces ``posit_fma_round_2d``.
 * ``posit_butterfly`` — the radix-2 DIT butterfly with all ten ops rounded:
   t = w ⊗ o (4 mul + 2 add), u = e + t, v = e − t.  One launch per FFT
   stage over the whole plane.  Replaces ``posit_butterfly_2d``.
@@ -36,6 +40,9 @@ def _kernels() -> ctypes.CDLL:
         for sfx in _SUFFIX.values():
             f = getattr(lib, f"posit_round_{sfx}")
             f.argtypes = [_P, _P, _LL, _I, _I, _P]
+            f.restype = _I
+            f = getattr(lib, f"posit_fma_round_{sfx}")
+            f.argtypes = [_P] * 4 + [_LL, ctypes.POINTER(_LL), _I, _I, _P]
             f.restype = _I
             f = getattr(lib, f"posit_butterfly_{sfx}")
             f.argtypes = [_P] * 10 + [_LL, _LL, _LL, _I, _I, _P]
@@ -87,6 +94,61 @@ def posit_round(x: torch.Tensor, fmt: PositFormat) -> torch.Tensor:
 
 
 posit_round.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Rounded multiply-add
+# ---------------------------------------------------------------------------
+
+_MAX_DIMS = 8                   # csrc/posit_round.cu kMaxDims
+
+
+def posit_fma_round_torch(a, b, c, fmt: PositFormat) -> torch.Tensor:
+    """Plain version of the multiply-add kernel: the product and the sum
+    are two separate float ops (eager torch never contracts them)."""
+    return round_posit_math(a * b + c, fmt)
+
+
+def posit_fma_round(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                    fmt: PositFormat) -> torch.Tensor:
+    """``round(a·b + c)`` over the broadcast of the three operands (f32 or
+    f64, promoted to one dtype).  A 0-d operand on the CPU counts as a
+    scalar and joins the others on the card."""
+    ops = (a, b, c)
+    if all(t.device.type == "cpu" for t in ops):
+        return posit_fma_round_torch(a, b, c, fmt)
+    dev = next(t.device for t in ops if t.is_cuda)
+    dtype = torch.promote_types(torch.result_type(a, b), c.dtype)
+    ops = tuple(t.to(device=dev, dtype=dtype) if t.dim() == 0 else
+                t.to(dtype) for t in ops)
+    for t in ops:
+        if not t.is_cuda:
+            raise ValueError(f"posit_fma_round: tensors must all be on the "
+                             f"card (got {t.device})")
+    if dtype not in _SUFFIX:
+        raise TypeError(f"posit_fma_round: float32/float64 only, got {dtype}")
+    shape = torch.broadcast_shapes(*(t.shape for t in ops))
+    if len(shape) > _MAX_DIMS:
+        raise ValueError(f"posit_fma_round: at most {_MAX_DIMS} dims")
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    n = out.numel()
+    if n:
+        flat = all(t.shape == shape and t.is_contiguous() for t in ops)
+        views = [t.expand(shape) for t in ops]
+        pad = [0] * (_MAX_DIMS - len(shape))
+        geom = [0 if flat else len(shape), *shape, *pad]
+        for v in views:
+            geom += [*v.stride(), *pad]
+        fn = getattr(_kernels(), f"posit_fma_round_{_SUFFIX[dtype]}")
+        _raise_on(fn(*(v.data_ptr() for v in views), out.data_ptr(), n,
+                     (_LL * len(geom))(*geom), fmt.n, fmt.es,
+                     torch.cuda.current_stream(dev).cuda_stream),
+                  "posit_fma_round")
+        posit_fma_round.launches += 1
+    return out
+
+
+posit_fma_round.launches = 0
 
 
 # ---------------------------------------------------------------------------

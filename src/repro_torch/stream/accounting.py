@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Tuple
 
+from repro_torch.core.arith import get_quire
 from repro_torch.data.biosignals import IMU_SR, WINDOW_S
 from repro_torch.energy.model import (OpCounts, estimate_app_energy_nj,
                                      fft_op_counts)
@@ -29,13 +30,20 @@ def energy_config_for_format(fmt: str) -> str:
     return "coprosit" if fmt.startswith("posit") else "fpu_ss"
 
 
-def window_energy_nj(ops: OpCounts, fmt: str) -> float:
-    """Model nJ for one window computed in ``fmt`` — corner selection plus
-    posit-width-aware datapath power (``energy.model.power_total_uw``), so
-    an escalated posit8→posit16 window costs measurably more.  Billed with
-    the quire off, the only mode this package computes."""
-    return estimate_app_energy_nj(ops, energy_config_for_format(fmt),
-                                  fmt=fmt)
+def window_energy_nj(ops: OpCounts, fmt: str, quire: bool = None) -> float:
+    """Modelled energy of ONE window of ``ops`` executed in ``fmt``.
+
+    Width-aware on the posit corner (``estimate_app_energy_nj(fmt=...)``):
+    an escalated posit8→posit16 window costs measurably more.
+
+    ``quire=None`` reads the live quire switch (``core.arith.get_quire``),
+    so the ledger bills whatever mode computed the window.  Only the posit
+    corner has a quire; IEEE windows price identically in both modes."""
+    if quire is None:
+        quire = get_quire()
+    config = energy_config_for_format(fmt)
+    return estimate_app_energy_nj(ops, config, fmt=fmt,
+                                  quire=bool(quire) and config == "coprosit")
 
 
 def cough_window_op_counts(fft_n: int = 4096, n_mel: int = 20,

@@ -3,8 +3,10 @@
 Needs an NVIDIA card and nvcc; without them every test here skips.  Run on
 the card with ``python -m pytest -q -m cuda tests/test_torch_card.py``
 (the file imports no jax, so it runs where only torch is installed).
-Tiers: the round, the butterfly and the codec bitwise, the matmul within
-one ulp, the posit-KV attention within rtol = atol = 2e-5.
+Tiers: the round, the multiply-add, the butterfly, the codec and the IEEE
+rounding bitwise, the rounded matmul within one ulp, the decode-fused
+matmul within 1e-5 of its largest output, the posit-KV attention within
+rtol = atol = 2e-5.
 """
 import numpy as np
 import pytest
@@ -168,3 +170,57 @@ def test_serve_kernel_route_matches_plain_route(dev):
         out[backend] = steps
     for a, b in zip(out["kernel"], out["torch"]):
         assert torch.allclose(a, b, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("name", ["posit8", "posit16", "posit32"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fma_kernel_bitwise(name, dtype, dev):
+    """Random operands, broadcast ones, and c = −fl(a·b), where a
+    contracted multiply-add would give other bits."""
+    from repro_torch.kernels.posit_round import (posit_fma_round,
+                                                 posit_fma_round_torch)
+    fmt = get_format(name)
+    g = torch.Generator().manual_seed(5)
+    a, b, c = (torch.randn(3, 1 << 14, generator=g, dtype=dtype) * 37)
+    cases = [(a, b, c), (a, b, -(a * b)),
+             (a[:64, None], b[None, :64], torch.tensor(0.5, dtype=dtype))]
+    for x, y, z in cases:
+        k = posit_fma_round(x.to(dev), y.to(dev), z.to(dev), fmt).cpu()
+        assert _equal_bits(k, posit_fma_round_torch(x, y, z, fmt))
+
+
+@pytest.mark.parametrize("name", ["posit8", "posit16"])
+@pytest.mark.parametrize("mkn", [(128, 256, 256), (64, 1000, 300),
+                                 (1, 7, 5)])
+def test_decode_matmul_kernel_within_tolerance(name, mkn, dev):
+    from repro_torch.kernels.posit_codec import posit_encode_torch
+    from repro_torch.kernels.posit_matmul import (posit_matmul,
+                                                  posit_matmul_torch)
+    fmt = get_format(name)
+    M, K, N = mkn
+    g = torch.Generator().manual_seed(6)
+    a = posit_encode_torch(torch.randn(M, K, generator=g), fmt).to(dev)
+    b = posit_encode_torch(torch.randn(K, N, generator=g) / K ** 0.5,
+                           fmt).to(dev)
+    k = posit_matmul(a, b, fmt)
+    p = posit_matmul_torch(a, b, fmt)
+    assert float((k - p).abs().max()) <= 1e-5 * float(p.abs().max())
+
+
+@pytest.mark.parametrize("name", ["fp16", "bfloat16", "fp8e5m2",
+                                  "fp8e4m3"])
+def test_round_to_float_card_equals_cpu(name, dev):
+    from repro_torch.core.floatsim import round_to_float
+    g = torch.Generator().manual_seed(7)
+    for dtype in (torch.float32, torch.float64):
+        x = torch.cat([
+            torch.randn(1 << 16, generator=g, dtype=dtype)
+            * torch.exp2(torch.randint(-150, 128, (1 << 16,), generator=g)
+                         .to(dtype)),
+            torch.tensor([448.0, 464.0, 464.01, 500.0, float("inf"),
+                          65520.0, 1e-40, 0.0, -0.0], dtype=dtype)])
+        k = round_to_float(x.to(dev), get_format(name)).cpu()
+        p = round_to_float(x, get_format(name))
+        assert torch.equal(torch.isnan(k), torch.isnan(p))
+        ok = ~torch.isnan(p)
+        assert _equal_bits(k[ok], p[ok])

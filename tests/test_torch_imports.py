@@ -5,9 +5,11 @@
 * No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
   ``jax`` or ``repro`` (an AST scan).
 * Entry points (the stream engine and window cores, ``build_model``,
-  ``ServingEngine`` and ``python -m repro_torch.launch.serve``) resolve
-  ``device=None`` to the card and raise without CUDA; ``device="cpu"``
-  runs on the CPU.
+  ``ServingEngine``, ``python -m repro_torch.launch.serve``, the
+  quickstart and the format study) resolve ``device=None`` to the card and
+  raise without CUDA; ``device="cpu"`` runs on the CPU.
+* Every registered format makes an ``Arith`` and the quire switch
+  round-trips.
 * A CPU tensor never reaches the kernel loader, under any backend.
 * ``chip_smoke.py`` exits non-zero with no result line without CUDA, and
   alone in a directory.
@@ -22,11 +24,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import quickstart, study
 from repro_torch.apps import bayeslope, cough, forest
 from repro_torch.configs import CONFIGS, reduced
-from repro_torch.core.arith import (Arith, backend_overrides,
+from repro_torch.core.arith import (Arith, backend_overrides, get_quire,
                                     get_round_backend, set_quire)
-from repro_torch.kernels import build
+from repro_torch.core.formats import ALL_FORMATS, FloatFormat
+from repro_torch.kernels import build, ops
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import build_model
 from repro_torch.serve import ServeConfig, ServingEngine
@@ -104,8 +108,9 @@ def _serving_engine(dev):
     lambda dev: serve_cli.main(
         ["--arch", "qwen3-8b", "--requests", "1", "--new-tokens", "2"]
         + ([] if dev is None else ["--device", dev])),
+    lambda dev: quickstart.main([] if dev is None else ["--device", dev]),
 ], ids=["StreamEngine", "make_cough_scorer", "detect_rpeaks", "build_model",
-        "ServingEngine", "launch.serve"])
+        "ServingEngine", "launch.serve", "quickstart"])
 def test_entry_points_need_the_card_unless_told(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -129,6 +134,11 @@ def test_cpu_tensors_never_reach_the_kernel_loader(monkeypatch):
             assert p.shape == (2,) and torch.all(p == 0.5)
             bayeslope.rpeak_window_scores(Arith.make("posit10"),
                                           torch.from_numpy(audio[:, 0]))
+            p16 = Arith.make("posit16")
+            v = torch.from_numpy(imu[0])
+            p16.fma(v, v, 1.0)
+            bits = ops.encode(v[:, :8], p16.fmt)
+            ops.matmul(bits, bits.T.contiguous(), p16.fmt)
 
 
 def test_auto_backend_resolves_per_tensor():
@@ -137,14 +147,42 @@ def test_auto_backend_resolves_per_tensor():
         assert get_round_backend(torch.zeros(1)) == "kernel"
 
 
-def test_deferred_arithmetic_raises():
-    for name in ("fp16", "bfloat16", "fp8e4m3", "fp8e5m2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Arith.make(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        set_quire("on")
-    set_quire("off")
-    Arith.make("fp32")
+def test_study_needs_the_card_unless_told(monkeypatch):
+    """The study's sizes take minutes on the CPU, so its two sweeps are
+    stubbed here: what is checked is where each would run."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    seen = []
+    monkeypatch.setattr(study, "run_cough_detection", lambda fmts, **kw: (
+        seen.append(("cough", kw["device"])) or {
+            f: {"auc": 1.0, "fpr_at_tpr95": 0.0} for f in fmts}))
+    monkeypatch.setattr(study, "run_rpeak_detection", lambda fmts, **kw: (
+        seen.append(("rpeak", kw["device"])) or {f: 1.0 for f in fmts}))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        study.main([])
+    out = study.main(["--device", "cpu"])
+    assert set(out) == {"cough", "rpeak"}
+    assert seen == [("cough", torch.device("cpu")),
+                    ("rpeak", torch.device("cpu"))]
+    study.main(["--device", "cpu", "--task", "rpeak"])
+    assert seen[-1] == ("rpeak", torch.device("cpu")) and len(seen) == 3
+
+
+def test_every_format_constructs_and_quire_round_trips():
+    for name, fmt in ALL_FORMATS.items():
+        ar = Arith.make(name)
+        assert ar.fmt == fmt
+        assert ar.exact == (name == "fp32")
+        assert ar.is_posit != isinstance(fmt, FloatFormat)
+        x = torch.tensor([1.0, 3.0e5, -0.1])
+        assert ar.rnd(x).shape == x.shape
+    with backend_overrides(quire="off"):
+        for mode, on in (("on", True), ("off", False), ("auto", False),
+                         ("on", True)):
+            set_quire(mode)
+            assert get_quire() is on
+            assert Arith.make("posit16").quire is on
+            assert not Arith.make("fp16").quire
+    assert not get_quire()
 
 
 def test_chip_smoke_fails_without_cuda_or_alone(tmp_path):
