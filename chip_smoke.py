@@ -5,7 +5,10 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit, then the build of the CUDA kernels
-     (one nvcc per source, in parallel) and its time;
+     (one nvcc per source, in parallel) and its time, the registers and
+     spills ``nvcc -Xptxas -v`` reports for the decode-fused matmul and the
+     KV-attention, and the HGMMA (``wgmma``) instructions in the matmul's
+     SASS;
   2. each kernel against its plain torch version on the card: the round,
      the butterfly, the codec's decode and encode bitwise, the rounded
      matmul within one format ulp, the posit-KV attention within
@@ -19,8 +22,11 @@ Phases, each fatal on failure:
      the CPU; then the same fleet once more under ``torch.profiler`` for
      the device's busy share and its top kernels;
   4. each kernel's median time per call (CUDA events) and its device time
-     per launch (profiler) beside its bound, its plain version's time and,
-     where one exists, one library call's;
+     per call (profiler: every kernel the call launches, a combine kernel
+     included) beside its bound, its plain version's time and, where one
+     exists, one library call's; the KV-attention also at S = 32768 (its
+     split path) and the decode-fused matmul also beside the unfused route
+     (the codec's decode of both operands, then ``torch.matmul``);
   5. the serve path: qwen3-8b at full width (36 layers, random weights from
      a seeded generator on the card) behind ``ServingEngine`` with two
      lanes (posit16 weights; posit8 and posit16 KV), 12 requests, every
@@ -36,14 +42,18 @@ Phases, each fatal on failure:
      ``Arith.fma`` (one multiply-add launch per call).
 
 Phase 2 also holds the multiply-add bitwise and the decode-fused matmul
-within 1e-5 of its largest output against their plain versions, the IEEE
-rounding on the card bitwise against the CPU's, and quire-mode dot and
-matmul on the card against the exact oracle; phase 3's fleet pins every
-fourth cough patient to fp16; phase 4 times both new kernels.  Each phase
+within 1e-5 of its largest output against their plain versions (at the
+quickstart's shape, the FFN width in posit16 and posit8, a ragged shape
+and an int32 container), the IEEE rounding on the card bitwise against the
+CPU's, and quire-mode dot and matmul on the card against the exact oracle;
+the KV-attention is held at S = 96 (one split) and S = 32768 (many).
+Phase 3's fleet pins every fourth cough patient to fp16.  Each phase
 prints its wall time.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
+Four lines end the output: a JSON object with the kernels' rows at other
+shapes than the main path's (``kernels_at_other_shapes``), the card's
+name and power limit, a JSON object with one entry per kernel, and
+``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the repository's ``src/repro_torch`` beside this file, it exits non-zero
 and prints no result.  It imports nothing of jax and nothing of ``repro``.
 """
@@ -117,22 +127,62 @@ def cuda_ms(fn, reps: int = 10, samples: int = 21) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str, reps: int = 50) -> float:
-    """Mean device time per launch of the kernel whose name contains
-    ``kernel``, from ``torch.profiler`` over ``reps`` calls (no host time);
-    NaN if the profiler recorded none."""
+def device_ms(fn, kernels, reps: int = 50) -> float:
+    """Mean device time per call of ``fn``: the device time of every kernel
+    whose name contains one of ``kernels`` (a name or a tuple of names: a
+    combine or reduction kernel the call launches is counted), from
+    ``torch.profiler`` over ``reps`` calls (no host time), divided by the
+    number of calls; NaN if the profiler recorded none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    names = (kernels,) if isinstance(kernels, str) else tuple(kernels)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel in e.key]
-    n = sum(e.count for e in hits)
+    hits = [e for e in prof.key_averages()
+            if any(k in e.key for k in names)]
     us = sum(getattr(e, "self_device_time_total", 0) for e in hits)
-    return us / n / 1e3 if n and us else float("nan")
+    return us / reps / 1e3 if us else float("nan")
+
+
+def ptxas_report(log_text: str):
+    """(entry, registers, spill stores, spill loads, stack) of every kernel
+    in ``nvcc -Xptxas -v`` output."""
+    import re
+    rows, entry, spills = [], None, (0, 0, 0)
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            spills = tuple(int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            rows.append((entry, int(m.group(1)), spills[1], spills[2],
+                         spills[0]))
+            entry = None
+    return rows
+
+
+def sass_count(lib, opcode: str):
+    """{kernel: count} of SASS instructions whose opcode starts with
+    ``opcode`` in the shared library ``lib`` (``cuobjdump -sass``)."""
+    from repro_torch.kernels import build
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn and f" {opcode}" in line:
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
 
 
 def bits_equal(a, b) -> bool:
@@ -312,8 +362,9 @@ def check_serve_kernels(dev, report):
                                                  posit_encode,
                                                  posit_encode_torch)
     from repro_torch.kernels.posit_kv_attention import (
-        posit_kv_attention, posit_kv_attention_torch)
+        kv_split_plan, posit_kv_attention, posit_kv_attention_torch)
     gen = torch.Generator().manual_seed(SEED + 2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     # decode: every posit8/posit16 pattern, random posit(12, 2) bits
     cases = [(get_format(f"posit{n}"),
@@ -370,8 +421,9 @@ def check_serve_kernels(dev, report):
                                      "not zero")
             err = max(err, max_abs_err(k, p))
             log(f"  posit_kv_attention {name} (4, {S}, 8, 128) lengths "
-                f"{lengths.tolist()}: within 2e-5, max abs err "
-                f"{max_abs_err(k, p):.3g}")
+                f"{lengths.tolist()}, plan (bs, key blocks, blocks per "
+                f"split, splits) {kv_split_plan(S, 512, 32, sms)}: within "
+                f"2e-5, max abs err {max_abs_err(k, p):.3g}")
     report["posit_kv_attention"]["max_abs_err"] = err
 
 
@@ -431,11 +483,12 @@ def check_format_kernels(dev, report):
     from repro_torch.core.formats import get_format
     from repro_torch.core.posit import decode, encode
     from repro_torch.core.quire import quire_dot_exact
-    from repro_torch.kernels.posit_matmul import (posit_matmul,
+    from repro_torch.kernels.posit_matmul import (matmul_plan, posit_matmul,
                                                   posit_matmul_torch)
     from repro_torch.kernels.posit_round import (posit_fma_round,
                                                  posit_fma_round_torch)
     gen = torch.Generator().manual_seed(SEED + 4)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     # multiply-add: random f32 with specials, c = -fl(a*b) (where a
     # contracted FMA differs), broadcast operands, an f64 grid
@@ -469,23 +522,32 @@ def check_format_kernels(dev, report):
             f"bitwise")
     report["posit_fma_round"]["max_abs_err"] = err
 
-    # decode-fused matmul: the quickstart's shape and the FFN width
+    # decode-fused matmul: the quickstart's shape and the FFN width in
+    # posit16 and posit8; a ragged shape; posit16 patterns in an int32
+    # container
     err = 0.0
-    for name in ("posit16", "posit8"):
+    cases = [(name, mkn, False) for name in ("posit16", "posit8")
+             for mkn in ((128, 256, 256), FFN_SHAPE)]
+    cases += [("posit16", (70, 333, 200), False),
+              ("posit16", (64, 1000, 300), True)]
+    for name, (M, K, N), widen in cases:
         fmt = get_format(name)
-        for M, K, N in ((128, 256, 256), FFN_SHAPE):
-            a, b = matmul_case(gen, M, K, N, fmt, dev)
-            k, p = posit_matmul(a, b, fmt), posit_matmul_torch(a, b, fmt)
-            torch.cuda.synchronize()
-            rel = rel_err(k, p)
-            if not rel <= MATMUL_REL_TOL:
-                raise AssertionError(f"posit_matmul {name} ({M}, {K}) x "
-                                     f"({K}, {N}): {rel:.3g} of the largest "
-                                     f"output from its plain version")
-            err = max(err, max_abs_err(k, p))
-            log(f"  posit_matmul {name} ({M}, {K}) x ({K}, {N}): max "
-                f"error {rel:.3g} of the largest output (tolerance "
-                f"{MATMUL_REL_TOL:g}), max abs err {max_abs_err(k, p):.3g}")
+        a, b = matmul_case(gen, M, K, N, fmt, dev)
+        if widen:
+            a, b = a.to(torch.int32), b.to(torch.int32)
+        k, p = posit_matmul(a, b, fmt), posit_matmul_torch(a, b, fmt)
+        torch.cuda.synchronize()
+        rel = rel_err(k, p)
+        if not rel <= MATMUL_REL_TOL:
+            raise AssertionError(f"posit_matmul {name} ({M}, {K}) x "
+                                 f"({K}, {N}): {rel:.3g} of the largest "
+                                 f"output from its plain version")
+        err = max(err, max_abs_err(k, p))
+        log(f"  posit_matmul {name} {str(a.dtype)[6:]} ({M}, {K}) x "
+            f"({K}, {N}), plan (bn, splits, slabs per split, grid) "
+            f"{matmul_plan(M, N, K, a.element_size(), fmt.n, sms)}: max "
+            f"error {rel:.3g} of the largest output (tolerance "
+            f"{MATMUL_REL_TOL:g}), max abs err {max_abs_err(k, p):.3g}")
     report["posit_matmul"]["max_abs_err"] = err
 
     # IEEE rounding: the card's run bitwise against the CPU's
@@ -1198,7 +1260,8 @@ def time_format_kernels(dev, report):
     """The multiply-add at the round kernel's main-path shape (32, 2, 4096)
     f32, all three operands full size; the decode-fused matmul at the FFN
     width in posit16, beside ``torch.matmul`` on the bf16 operands already
-    decoded (the decode not counted)."""
+    decoded (the decode not counted) and beside the unfused route, the
+    codec kernel's decode of both operands and then ``torch.matmul``."""
     import torch
     from repro_torch.core.formats import get_format
     from repro_torch.kernels.posit_codec import posit_decode
@@ -1226,17 +1289,22 @@ def time_format_kernels(dev, report):
     by_bytes = nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S
     a16, b16 = posit_decode(ab, fmt, torch.bfloat16), posit_decode(
         bb, fmt, torch.bfloat16)
+
+    def unfused():
+        return torch.matmul(posit_decode(ab, fmt, torch.bfloat16),
+                            posit_decode(bb, fmt, torch.bfloat16))
     report["posit_matmul"].update(
         ms=cuda_ms(lambda: posit_matmul(ab, bb, fmt)),
         device_ms=device_ms(lambda: posit_matmul(ab, bb, fmt),
-                            "posit_matmul_decode_kernel"),
+                            ("posit_matmul_wgmma_kernel",
+                             "posit_matmul_combine_kernel")),
         plain_ms=cuda_ms(lambda: posit_matmul_torch(ab, bb, fmt), reps=2,
                          samples=5),
         bound_ms=max(nbytes / HBM_BYTES_PER_S,
                      flops / BF16_FLOPS_PER_S) * 1e3,
         bound_by="bytes" if by_bytes else "operations",
         library_ms=cuda_ms(lambda: torch.matmul(a16, b16)),
-        shape=[M, K, N, "posit16"])
+        unfused_ms=cuda_ms(unfused), shape=[M, K, N, "posit16"])
 
 
 def time_serve_kernels(dev, report):
@@ -1309,7 +1377,7 @@ def time_serve_kernels(dev, report):
             ms=cuda_ms(lambda: posit_kv_attention(q, kb, vb, lengths, fmt)),
             device_ms=device_ms(
                 lambda: posit_kv_attention(q, kb, vb, lengths, fmt),
-                "posit_kv_attention_kernel"),
+                ("posit_kv_attention_kernel", "posit_kv_combine_kernel")),
             plain_ms=cuda_ms(lambda: posit_kv_attention_torch(
                 q, kb, vb, lengths, fmt), **slow),
             bound_ms=max(nbytes / HBM_BYTES_PER_S,
@@ -1362,6 +1430,23 @@ def main() -> int:
     libs = build.build()
     log(f"  built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
+    for name in ("posit_matmul", "posit_kv_attention"):
+        text = build.BUILD_LOGS.get(name)
+        if text is None:
+            log(f"  nvcc -Xptxas -v {name}.cu: built before this run, no "
+                f"compiler output")
+            continue
+        log(f"  nvcc -Xptxas -v {name}.cu (registers, spill stores/loads "
+            f"bytes, stack bytes):")
+        for entry, regs, st, ld, stack in ptxas_report(text):
+            log(f"    {entry[:72]}: {regs} registers, spills {st}/{ld}, "
+                f"stack {stack}")
+    hgmma = sass_count(libs["posit_matmul"], "HGMMA")
+    if not any("posit_matmul_wgmma_kernel" in fn for fn in hgmma):
+        raise AssertionError("posit_matmul: no HGMMA (wgmma) instruction in "
+                             "the decode-fused kernel's SASS")
+    log(f"  cuobjdump -sass: HGMMA (wgmma.mma_async) instructions per "
+        f"kernel: {hgmma}")
 
     src = "src/repro_torch/kernels"
     report = {
@@ -1427,10 +1512,12 @@ def main() -> int:
     for r in [*report.values(), *extra]:
         lib = ("-" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
+        unfused = (f", decode + torch.matmul {r['unfused_ms']:.4f} ms"
+                   if "unfused_ms" in r else "")
         log(f"  {r['name']} {r['shape']}: {r['ms']:.4f} ms per call "
             f"({r['device_ms']:.4f} ms of it on the device), bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-            f"{r['plain_ms']:.4f} ms, library {lib}")
+            f"{r['plain_ms']:.4f} ms, library {lib}{unfused}")
     torch.cuda.empty_cache()
 
     phase(f"phase 5: serve path, {SERVE_ARCH} at full width, "
@@ -1485,6 +1572,10 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels_at_other_shapes": [
+        {k: r[k] for k in ("name", "shape", "ms", "device_ms", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms")}
+        for r in extra]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in report.values()]}), flush=True)

@@ -10,6 +10,7 @@ import: a CPU tensor never reaches this module.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -23,11 +24,15 @@ KERNEL_SOURCES = ("posit_round", "posit_matmul", "posit_codec",
                   "posit_kv_attention")
 HEADERS = ("posit_math.cuh", "posit_decode.cuh")
 # -fmad=false: the rounding chain rounds each product on its own; a
-# contracted a*b+c would round once and change the bits
+# contracted a*b+c would round once and change the bits.  -Xptxas -v: each
+# kernel's registers, shared memory and spills, kept in ``BUILD_LOGS``.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# the compiler's output of each source built by this process
+BUILD_LOGS: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -69,6 +74,7 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, Path]:
             errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{out}")
         else:
             os.replace(tmp, path)       # atomic: never a half-written .so
+            BUILD_LOGS[name] = out
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths
@@ -80,3 +86,10 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _libs[name] = ctypes.CDLL(str(build([name])[name]))
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of card ``index``, which the launch plans read."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -26,25 +26,43 @@
 // Replaces repro/kernels/posit_matmul.py::posit_matmul (ops.matmul, the
 // quickstart's product).  On the TPU each (bm, bk) and (bk, bn) tile of
 // bits is decoded in VMEM to bf16 (the MXU's input) and accumulated in f32
-// across a sequential K grid axis.  Here one thread block owns a 64x64
-// output tile and walks all of K itself in 32-deep slabs: its 256 threads
-// load the slab's bits (coalesced along the row), decode them with
-// posit_decode.cuh, round each value to bf16 (__float2bfloat16_rn, the
-// reference's compute dtype) and stage them in shared memory as f32; each
-// thread then accumulates a 4x4 register tile in f32.  A bf16 x bf16
-// product is exact in f32, so the fused multiply-add below equals a
-// rounded product followed by a rounded add.
+// across a sequential K grid axis.
 //
 // Bound on the H100 at the FFN width (64, 4096) . (4096, 12288) posit16:
-// the 104 MB of bits and output take 0.031 ms at 3.35 TB/s; the 6.44
-// GFLOP take 0.0065 ms on bf16 tensor cores but 0.096 ms in f32 FMAs, so
-// this simple f32 design is held by its arithmetic, several times its
-// byte bound.  Tensor-core tiles (wgmma) are the redesign's work.
+// the 104 MB of bits and output take 0.031 ms at 3.35 TB/s and the 6.44
+// GFLOP 0.0065 ms on bf16 tensor cores; what the card really spends is
+// the work of ~60 M posit decodes (some 30 integer operations each by
+// arithmetic, ~0.1 ms at the SMs' integer rate).  So the design keeps the
+// MMA off the critical path and spends the threads on decoding each value
+// once, as cheaply as it can:
+//  * persistent blocks of 512 threads walk work units, each a 64 x BN
+//    output tile (BN = 64, 128 or 256: one warpgroup per 64 columns runs
+//    the MMA, all 16 warps decode) over a contiguous range of K slabs 64
+//    deep; a wide BN decodes the A panel once per BN columns;
+//  * the bits of slab k+2 are fetched with cp.async.cg (16 bytes a
+//    thread, or element loads at a ragged or unaligned edge) into a
+//    two-stage staging ring while slab k is decoded;
+//  * every thread decodes staged bits, through a table of all 2^n bf16
+//    values (n <= 16, built once per block from posit_decode.cuh, where
+//    the plan finds it pays) or posit_decode.cuh itself, rounds to bf16
+//    with __float2bfloat16_rn (the reference's compute dtype) and writes
+//    16-byte rows of eight values straight into the K-major,
+//    128-byte-swizzled tiles that wgmma's descriptors read; neither
+//    operand is ever written back to device memory decoded;
+//  * the decoded tiles are double-buffered: wgmma.mma_async m64n64k16
+//    (bf16 in, f32 out) multiplies slab k while slab k+1 is decoded, and
+//    each slab's f32 result is added into a separate f32 register
+//    accumulator (a rounded add), so the tensor cores' own accumulation
+//    spans 64 products and never the whole of K;
+//  * the plan (kernels/posit_matmul.py::matmul_plan) splits K across
+//    work units when the output tiles alone would not fill the card; each
+//    split writes an f32 partial tile and posit_matmul_combine_kernel adds
+//    the splits in a fixed order (no atomics, the same bits every run).
 //
 // Build with -fmad=false: products round before they add, like the plain
-// version's reduction, not as fused multiply-adds (the decode-fused
-// product spells out its exact fused multiply-add with __fmaf_rn).
+// version's reduction, not as fused multiply-adds.
 #include <cuda_bf16.h>
+#include <cstdint>
 
 #include "posit_decode.cuh"
 #include "posit_math.cuh"
@@ -87,77 +105,357 @@ __global__ void posit_matmul_round_kernel(const T* __restrict__ a,
 }
 
 namespace {
-constexpr int kDM = 64, kDN = 64, kDK = 32;   // decode-fused tile
-constexpr int kDThreads = 256;                // 16 x 16, 4 x 4 outputs each
-}  // namespace
+constexpr int kBM = 64;            // output rows per block: one wgmma M
+constexpr int kBK = 64;            // slab depth: 128 bytes of bf16 per row
+constexpr int kStages = 2;         // staging ring of raw bits
+constexpr int kThreadsB7 = 512;    // 16 warps decode; NWG of 4 multiply
+constexpr int kWgN = 64;           // output columns per warpgroup
+constexpr int kTileAlign = 1024;   // 128-byte swizzle atom: 8 rows
+constexpr int kTableBits = 16;     // posits up to 16 bits decode by table
 
-// The posit value of `raw` rounded to bf16, as f32 (exact).
-__device__ __forceinline__ float decode_bf16(int32_t raw, int nbits,
-                                             int es) {
-  return __bfloat162float(
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// wgmma operand descriptor of a K-major tile whose rows are 128 bytes
+// (64 bf16), swizzled in 1024-byte atoms of 8 rows: start >> 4, leading
+// byte offset 16 B (unused by this layout), stride 1024 B between 8-row
+// groups, layout 1 = 128-byte swizzle.
+__device__ __forceinline__ uint64_t tile_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Byte offset of the 16-byte group `kc` (of eight bf16) of row `r` in a
+// swizzled tile: the group index XOR the row's place in its 8-row atom.
+__device__ __forceinline__ uint32_t swz(int r, int kc) {
+  return static_cast<uint32_t>(r * 128 + ((kc ^ (r & 7)) << 4));
+}
+
+// D (64 x 64 f32, 32 registers a thread) = A_desc (64 x 16) . B_desc
+// (16 x 64), plus D when scale_d != 0.  Both operands K-major in shared
+// memory.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Keep the compiler from moving reads of the accumulator above the wait.
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// The posit value of `raw` rounded to bf16 (the reference's compute
+// dtype), as its 16 bits.
+__device__ __forceinline__ uint32_t decode_bf16_bits(int32_t raw, int nbits,
+                                                     int es,
+                                                     const uint16_t* table) {
+  if (table != nullptr)
+    return table[static_cast<uint32_t>(raw) & ((1u << nbits) - 1u)];
+  return __bfloat16_as_ushort(
       __float2bfloat16_rn(posit::decode_f32(raw, nbits, es)));
 }
 
 template <typename S>
-__global__ void posit_matmul_decode_kernel(const S* __restrict__ a,
-                                           const S* __restrict__ b,
-                                           float* __restrict__ c, int M,
-                                           int K, int N, int nbits, int es) {
-  __shared__ float a_s[kDK][kDM + 1];   // transposed: k-major, padded
-  __shared__ float b_s[kDK][kDN];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int row0 = blockIdx.y * kDM, col0 = blockIdx.x * kDN;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kDK) {
-    for (int t = threadIdx.x; t < kDM * kDK; t += kDThreads) {
-      const int r = t / kDK, k = t % kDK;
-      const int gr = row0 + r, gk = k0 + k;
-      a_s[k][r] = (gr < M && gk < K)
-                      ? decode_bf16(a[static_cast<long long>(gr) * K + gk],
-                                    nbits, es)
-                      : 0.0f;
-    }
-    for (int t = threadIdx.x; t < kDK * kDN; t += kDThreads) {
-      const int k = t / kDN, col = t % kDN;
-      const int gk = k0 + k, gc = col0 + col;
-      b_s[k][col] = (gk < K && gc < N)
-                        ? decode_bf16(b[static_cast<long long>(gk) * N + gc],
-                                      nbits, es)
-                        : 0.0f;
-    }
-    __syncthreads();
-    const int kn = K - k0 < kDK ? K - k0 : kDK;
-    for (int k = 0; k < kn; ++k) {
-      float av[4], bv[4];
-      for (int i = 0; i < 4; ++i) av[i] = a_s[k][ty + 16 * i];
-      for (int j = 0; j < 4; ++j) bv[j] = b_s[k][tx + 16 * j];
-      for (int i = 0; i < 4; ++i)
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+__device__ __forceinline__ uint32_t pack2(const S* v, int j, int nbits,
+                                          int es, const uint16_t* table) {
+  return decode_bf16_bits(v[j], nbits, es, table) |
+         (decode_bf16_bits(v[j + 1], nbits, es, table) << 16);
+}
+
+// Eight decoded values as one 16-byte group of bf16.
+template <typename S>
+__device__ __forceinline__ uint4 pack8(const S (&v)[8], int nbits, int es,
+                                       const uint16_t* table) {
+  uint4 w;
+  w.x = pack2(v, 0, nbits, es, table);
+  w.y = pack2(v, 2, nbits, es, table);
+  w.z = pack2(v, 4, nbits, es, table);
+  w.w = pack2(v, 6, nbits, es, table);
+  return w;
+}
+}  // namespace
+
+// A persistent block walks the work units blockIdx.x, blockIdx.x +
+// gridDim.x, ...: unit u is output rows [m0, m0 + 64) x columns [n0, n0 +
+// 64 NWG) over the K slabs of split u % splits.  512 threads stage and
+// decode; warpgroup w < NWG multiplies columns [64 w, 64 w + 64).  The
+// decoded tiles are double-buffered: slab s is decoded while the tensor
+// cores multiply slab s - 1.  With use_table (n <= 16), the posits decode
+// through a table of all 2^n bf16 values that the block builds once from
+// the same decoder.
+// Dynamic shared memory: two sets of the swizzled bf16 tiles A (64 x 64)
+// and B (64 NWG x 64, K-major), the staging ring (kStages x (A 64 x 64 and
+// B 64 x 64 NWG raw bits, as in device memory)), the bf16 table.
+template <typename S, int NWG>
+__global__ void __launch_bounds__(kThreadsB7)
+    posit_matmul_wgmma_kernel(const S* __restrict__ a,
+                              const S* __restrict__ b, float* __restrict__ c,
+                              int M, int K, int N, int nbits, int es,
+                              int splits, int slabs_per_split, int use_table,
+                              int a_vec, int b_vec) {
+  constexpr int kBN = kWgN * NWG;
+  constexpr int kVec = 16 / static_cast<int>(sizeof(S));  // per cp.async
+  constexpr int kDecBytes = (kBM + kBN) * 128;            // A and B tiles
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_addr(smem_raw);
+  uint8_t* smem =
+      smem_raw + ((kTileAlign - base % kTileAlign) % kTileAlign);
+  S* stage = reinterpret_cast<S*>(smem + 2 * kDecBytes);
+  constexpr int kStageElems = kBM * kBK + kBK * kBN;
+  uint16_t* table_s =
+      reinterpret_cast<uint16_t*>(stage + kStages * kStageElems);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const bool mma = wg < NWG;            // this warpgroup multiplies
+  const int lane = tid & 31, warp = (tid >> 5) & 3;
+  const int n_slabs = (K + kBK - 1) / kBK;
+  const int n_tiles = (N + kBN - 1) / kBN, m_tiles = (M + kBM - 1) / kBM;
+  const int n_units = n_tiles * m_tiles * splits;
+  const uint16_t* table = nullptr;
+  if (use_table) {
+    for (int i = tid; i < (1 << nbits); i += kThreadsB7)
+      table_s[i] = __bfloat16_as_ushort(
+          __float2bfloat16_rn(posit::decode_f32(i, nbits, es)));
+    table = table_s;          // visible after the first __syncthreads
   }
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row >= M) continue;
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx + 16 * j;
-      if (col < N) c[static_cast<long long>(row) * N + col] = acc[i][j];
+
+  for (int unit = blockIdx.x; unit < n_units; unit += gridDim.x) {
+    const int split = unit % splits;
+    const int tile = unit / splits;
+    const int m0 = (tile / n_tiles) * kBM, n0 = (tile % n_tiles) * kBN;
+    const int s0 = split * slabs_per_split;
+    const int s1 = min(n_slabs, s0 + slabs_per_split);
+
+    // raw bits of slab s into stage buffer `st`: A rows m, B rows k, as in
+    // device memory; zeros past M, N and K
+    auto load_slab = [&](int s, int st) {
+      S* sa = stage + st * kStageElems;
+      S* sb = sa + kBM * kBK;
+      const int k0 = s * kBK;
+      for (int ch = tid; ch < kBM * kBK / kVec; ch += kThreadsB7) {
+        const int m = ch / (kBK / kVec), kk = (ch % (kBK / kVec)) * kVec;
+        const int gm = m0 + m, gk = k0 + kk;
+        S* dst = sa + m * kBK + kk;
+        const S* src = a + static_cast<long long>(gm) * K + gk;
+        if (a_vec && gm < M && gk + kVec <= K) {
+          cp_async16(dst, src);
+        } else {
+          for (int j = 0; j < kVec; ++j)
+            dst[j] = (gm < M && gk + j < K) ? src[j] : S(0);
+        }
+      }
+      for (int ch = tid; ch < kBK * kBN / kVec; ch += kThreadsB7) {
+        const int k = ch / (kBN / kVec), nn = (ch % (kBN / kVec)) * kVec;
+        const int gk = k0 + k, gn = n0 + nn;
+        S* dst = sb + k * kBN + nn;
+        const S* src = b + static_cast<long long>(gk) * N + gn;
+        if (b_vec && gk < K && gn + kVec <= N) {
+          cp_async16(dst, src);
+        } else {
+          for (int j = 0; j < kVec; ++j)
+            dst[j] = (gk < K && gn + j < N) ? src[j] : S(0);
+        }
+      }
+    };
+    // the slab's f32 product (in flight in d) into the f32 accumulator
+    auto promote = [&](float (&acc)[32], float (&d)[32]) {
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        fence_operand(d[i]);
+        acc[i] = __fadd_rn(acc[i], d[i]);
+      }
+    };
+
+    float acc[32], d[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = d[i] = 0.0f;
+
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      if (s0 + st < s1) load_slab(s0 + st, st);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+
+    for (int s = s0; s < s1; ++s) {
+      const int st = (s - s0) % kStages;
+      uint8_t* dec_a = smem + ((s - s0) & 1) * kDecBytes;  // 64 x 128 B
+      uint8_t* dec_b = dec_a + kBM * 128;                  // kBN x 128 B
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1)
+                   : "memory");
+      // slab s staged; the tiles slab s - 2 used are free (every
+      // warpgroup waited for their products in the last step)
+      __syncthreads();
+      const S* sa = stage + st * kStageElems;
+      const S* sb = sa + kBM * kBK;
+      // A: row m, 8 consecutive k -> one 16-byte group of the swizzled tile
+#pragma unroll
+      for (int u = tid; u < kBM * (kBK / 8); u += kThreadsB7) {
+        const int m = u >> 3, kc = u & 7;
+        S v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = sa[m * kBK + kc * 8 + j];
+        *reinterpret_cast<uint4*>(dec_a + swz(m, kc)) =
+            pack8(v, nbits, es, table);
+      }
+      // B: column n, 8 consecutive k (a column of the staged rows) -> one
+      // 16-byte group of row n of the K-major tile
+#pragma unroll
+      for (int u = tid; u < kBN * (kBK / 8); u += kThreadsB7) {
+        const int n = u % kBN, kc = u / kBN;
+        S v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = sb[(kc * 8 + j) * kBN + n];
+        *reinterpret_cast<uint4*>(dec_b + swz(n, kc)) =
+            pack8(v, nbits, es, table);
+      }
+      // the generic-proxy stores above, visible to wgmma (the async proxy)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      if (mma && s > s0) promote(acc, d);   // slab s - 1's product
+      __syncthreads();  // tiles of slab s complete; stage st free again
+      if (s + kStages < s1) load_slab(s + kStages, st);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+      if (mma) {
+        const uint64_t desc_a = tile_desc(smem_addr(dec_a));
+        const uint64_t desc_b = tile_desc(smem_addr(dec_b + wg * kWgN * 128));
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)  // 16 bf16 = 32 B = 2 units
+          wgmma_m64n64k16(d, desc_a + 2 * kk, desc_b + 2 * kk, kk);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      }
+    }
+    if (mma && s1 > s0) promote(acc, d);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+    // the accumulator fragment: warp w of the warpgroup holds rows
+    // 16 w + lane / 4 (+ 8), columns 8 j + 2 (lane % 4) (+ 1) of block j
+    if (mma) {
+      float* out = c + static_cast<long long>(split) * M * N;
+      const int row = m0 + warp * 16 + (lane >> 2);
+      const int col = n0 + wg * kWgN + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row + 8 * h;
+          if (r >= M) continue;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cc = col + 8 * j + e;
+            if (cc < N) out[static_cast<long long>(r) * N + cc] =
+                acc[4 * j + 2 * h + e];
+          }
+        }
+      }
     }
   }
 }
 
+// C = the sum of the split-K partials, split 0 first, in that order.
+__global__ void posit_matmul_combine_kernel(const float* __restrict__ part,
+                                            float* __restrict__ c,
+                                            long long MN, int splits) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < MN; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float s = part[i];
+    for (int k = 1; k < splits; ++k) s = __fadd_rn(s, part[k * MN + i]);
+    c[i] = s;
+  }
+}
+
 namespace {
-template <typename S>
-int launch_decode(const void* a, const void* b, float* c, int M, int K,
-                  int N, int nbits, int es, void* stream) {
-  const dim3 grid((N + kDN - 1) / kDN, (M + kDM - 1) / kDM);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  posit_matmul_decode_kernel<S><<<grid, kDThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const S*>(a), static_cast<const S*>(b), c, M, K, N, nbits,
-      es);
+// Bytes of dynamic shared memory the kernel needs (the plan function in
+// kernels/posit_matmul.py mirrors this formula).
+template <typename S, int NWG>
+size_t wgmma_smem_bytes(int nbits, int use_table) {
+  const size_t bn = kWgN * NWG;
+  return kTileAlign + 2 * (kBM + bn) * 128 +
+         kStages * (kBM * kBK + kBK * bn) * sizeof(S) +
+         (use_table ? 2u << nbits : 0u);
+}
+
+template <typename S, int NWG>
+int launch_wgmma(const void* a, const void* b, float* c, float* part, int M,
+                 int K, int N, int nbits, int es, int splits,
+                 int slabs_per_split, int grid, int use_table,
+                 void* stream) {
+  const size_t smem = wgmma_smem_bytes<S, NWG>(nbits, use_table);
+  auto kernel = posit_matmul_wgmma_kernel<S, NWG>;
+  static size_t smem_set = 48 * 1024;   // the largest size allowed so far
+  cudaError_t err = cudaSuccess;
+  if (smem > smem_set) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = smem;
+  }
+  const int esize = static_cast<int>(sizeof(S));
+  const int a_vec = (static_cast<long long>(K) * esize) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  const int b_vec = (static_cast<long long>(N) * esize) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kernel<<<grid, kThreadsB7, smem, st>>>(
+      static_cast<const S*>(a), static_cast<const S*>(b),
+      splits > 1 ? part : c, M, K, N, nbits, es, splits, slabs_per_split,
+      use_table, a_vec, b_vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long MN = static_cast<long long>(M) * N;
+  const long long blocks = (MN + 255) / 256;
+  posit_matmul_combine_kernel<<<blocks < 4096 ? blocks : 4096, 256, 0, st>>>(
+      part, c, MN, splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S>
+int launch_decode(const void* a, const void* b, float* c, float* part, int M,
+                  int K, int N, int nbits, int es, int bn, int splits,
+                  int slabs_per_split, int grid, int use_table,
+                  void* stream) {
+  switch (bn) {
+    case 64:
+      return launch_wgmma<S, 1>(a, b, c, part, M, K, N, nbits, es, splits,
+                                slabs_per_split, grid, use_table, stream);
+    case 128:
+      return launch_wgmma<S, 2>(a, b, c, part, M, K, N, nbits, es, splits,
+                                slabs_per_split, grid, use_table, stream);
+    case 256:
+      return launch_wgmma<S, 4>(a, b, c, part, M, K, N, nbits, es, splits,
+                                slabs_per_split, grid, use_table, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <typename T>
@@ -185,17 +483,31 @@ int posit_matmul_round_f64(const double* a, const double* b, double* c,
   return launch<double>(a, b, c, M, K, N, nbits, es, stream);
 }
 
-// a, b: posit bits in a signed container of `bits_size` bytes (1, 2, 4).
-int posit_matmul_decode(const void* a, const void* b, float* c, int M, int K,
-                        int N, int bits_size, int nbits, int es,
-                        void* stream) {
+// a, b: posit bits in a signed container of `bits_size` bytes (1, 2, 4);
+// the plan (bn in {64, 128, 256}, splits, slabs_per_split, grid: blocks
+// of the persistent launch, use_table: decode by a table of the 2^nbits
+// values, nbits <= 16) from kernels/posit_matmul.py::matmul_plan;
+// part: splits x M x N f32 scratch when splits > 1 (else unused).
+int posit_matmul_decode(const void* a, const void* b, float* c, float* part,
+                        int M, int K, int N, int bits_size, int nbits, int es,
+                        int bn, int splits, int slabs_per_split, int grid,
+                        int use_table, void* stream) {
+  if (nbits < 2 || nbits > 32 || splits < 1 || slabs_per_split < 1 ||
+      grid < 1 || (use_table && nbits > kTableBits))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (bits_size) {
     case 1:
-      return launch_decode<int8_t>(a, b, c, M, K, N, nbits, es, stream);
+      return launch_decode<int8_t>(a, b, c, part, M, K, N, nbits, es, bn,
+                                   splits, slabs_per_split, grid, use_table,
+                                   stream);
     case 2:
-      return launch_decode<int16_t>(a, b, c, M, K, N, nbits, es, stream);
+      return launch_decode<int16_t>(a, b, c, part, M, K, N, nbits, es, bn,
+                                    splits, slabs_per_split, grid, use_table,
+                                    stream);
     case 4:
-      return launch_decode<int32_t>(a, b, c, M, K, N, nbits, es, stream);
+      return launch_decode<int32_t>(a, b, c, part, M, K, N, nbits, es, bn,
+                                    splits, slabs_per_split, grid, use_table,
+                                    stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

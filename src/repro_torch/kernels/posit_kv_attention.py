@@ -7,18 +7,29 @@ returns (B, KV, G, D) f32.  Replaces
 ``repro/kernels/posit_kv_attention.py::posit_kv_attention`` together with
 the B × KV vmap of ``repro/kernels/ops.py::kv_attention``.
 
-A CUDA tensor launches ``csrc/posit_kv_attention.cu`` (one thread block
-per row and KV head; K/V rows contiguous and 16-byte aligned) or raises;
-a CPU tensor takes the plain version, which replays
+A CUDA tensor launches ``csrc/posit_kv_attention.cu`` or raises; a CPU
+tensor takes the plain version.  The kernel splits the key blocks of
+``block_plan`` across thread blocks (``kv_split_plan``): the grid is (B ×
+KV, splits), each block runs the online softmax over its contiguous range
+of key blocks, skipping the blocks and rows at or past the row's length,
+and a second kernel merges the splits' (m, l, acc) partials in a fixed
+order; a cache of one key block (the serve path's) takes one split and no
+second launch.  K/V rows must be contiguous and 16-byte aligned, with G
+at most 8 query rows per KV head and D at most 256 (128 for G > 4): the
+slices of q and of the output that a lane keeps in registers.
+The plain version replays
 ``repro/kernels/ref.py::kv_attention_oracle`` op for op:
 the same ``block_plan``, the same masking order, the same carry updates.
-The kernel sums its dot products in another order, so the two agree
-within rtol = atol = 2e-5 (the reference's own kernel-vs-oracle
-tolerance), not bitwise.
+The kernel sums its dot products in another order and merges its
+splits, so the two agree within rtol = atol = 2e-5 (the reference's own
+kernel-vs-oracle tolerance), not bitwise.  A masked position is never
+read by the kernel; the plain version multiplies its decoded value by a
+zero weight, so a NaR pattern there gives NaN only in the plain version.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple, Union
 
 import torch
@@ -40,7 +51,8 @@ def _kernels() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load("posit_kv_attention")
         lib.posit_kv_attention.argtypes = (
-            [_P] * 5 + [_I] * 5 + [_LL] * 4 + [_I, _I, _F, _I, _I, _I, _P])
+            [_P] * 6 + [_I] * 5 + [_LL] * 4 + [_I] * 6 + [_F]
+            + [_I] * 3 + [_P])
         lib.posit_kv_attention.restype = _I
         _lib = lib
     return _lib
@@ -53,6 +65,52 @@ def block_plan(S: int, bs: int) -> Tuple[int, int]:
     rounded = -(-max(S, 1) // 8) * 8
     bs = max(8, min(bs, rounded))
     return bs, -(-S // bs) * bs
+
+
+# blocks per SM the split plan aims at on a long cache
+BLOCKS_PER_SM = 4
+
+
+@functools.lru_cache(maxsize=1024)
+def kv_split_plan(S: int, bs: int, n_heads: int,
+                  sms: int) -> Tuple[int, int, int, int]:
+    """(bs, n_blocks, blocks_per_split, splits) of the kernel's grid.
+
+    The key blocks of ``block_plan(S, bs)`` are cut into ``splits``
+    contiguous ranges of ``blocks_per_split`` (the last may be shorter,
+    none is empty).  The ``n_heads`` (= B × KV) × ``splits`` thread blocks
+    must put at least ``BLOCKS_PER_SM`` on each of the ``sms`` SMs where
+    the cache has that many key blocks; among such cuts the plan takes the
+    least work on the busiest SM (``ceil(blocks / sms)`` thread blocks of
+    ``blocks_per_split`` key blocks each), then the fewer splits.  A cache
+    of one key block takes one split: no partials and no combine
+    launch."""
+    bs, S_pad = block_plan(S, bs)
+    n_blocks = S_pad // bs
+    if n_blocks <= 1:
+        return bs, n_blocks, 1, 1
+    best = None
+    for per in range(n_blocks, 0, -1):
+        splits = -(-n_blocks // per)
+        if per > 1 and -(-n_blocks // (per - 1)) == splits:
+            continue            # the same splits, more evenly cut below
+        blocks = n_heads * splits
+        if blocks < BLOCKS_PER_SM * sms and per > 1:
+            continue
+        key = (-(-blocks // sms) * per, splits)
+        if best is None or key < best[0]:
+            best = (key, (bs, n_blocks, per, splits))
+    return best[1]
+
+
+def lane_plan(G: int, D: int) -> Tuple[int, int]:
+    """(el, gp): elements of a K/V row per lane (a power of two, D <= 32
+    el) and G rounded up to a power of two, at least 2; None where the
+    kernel has no such variant (el > 8, gp > 8 or el × gp > 32: q's slice
+    and the accumulators live in registers)."""
+    el = 1 << max(0, -(-D // 32) - 1).bit_length()
+    gp = max(2, 1 << max(0, G - 1).bit_length())
+    return (el, gp) if el <= 8 and gp <= 8 and el * gp <= 32 else None
 
 
 def _lengths(length, B: int, device) -> torch.Tensor:
@@ -122,9 +180,11 @@ def posit_kv_attention(q: torch.Tensor, k_bits: torch.Tensor,
         raise ValueError(f"posit_kv_attention: K/V {tuple(k_bits.shape)} "
                          f"must be (B, S, KV, D) = {(B, S, KV, D)} with "
                          f"one layout")
-    if G * D > 1024 or B * KV >= 2 ** 31 or S >= 2 ** 31:
-        raise ValueError(f"posit_kv_attention: G*D = {G * D} above 1024 "
-                         f"or B*KV/S beyond int32")
+    lanes = lane_plan(G, D)
+    if G * D > 1024 or lanes is None or B * KV >= 2 ** 31 or S >= 2 ** 31:
+        raise ValueError(f"posit_kv_attention: G = {G}, D = {D}: the kernel "
+                         f"takes G <= 8 and D <= 256 (D <= 128 for G > 4), "
+                         f"and B*KV, S within int32")
     e = k_bits.element_size()
     if (k_bits.stride(-1) != 1
             or any(st * e % 16 for st in (D, *k_bits.stride()[:3]))
@@ -135,14 +195,18 @@ def posit_kv_attention(q: torch.Tensor, k_bits: torch.Tensor,
     out = torch.empty((B, KV, G, D), dtype=torch.float32, device=q.device)
     if S == 0 or B * KV == 0:
         return out.zero_()
-    bs, S_pad = block_plan(S, bs)
+    bs, n_blocks, per, splits = kv_split_plan(
+        S, bs, B * KV, build.sm_count(q.device.index))
+    part = (torch.empty(B * KV * splits * (G * D + 2 * G),
+                        dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
     lengths = _lengths(length, B, q.device)
     rc = _kernels().posit_kv_attention(
         q.data_ptr(), k_bits.data_ptr(), v_bits.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, KV, G, D, S,
-        *k_bits.stride(), bs, S_pad // bs, D ** -0.5,
-        k_bits.element_size(), fmt.n, fmt.es,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        lengths.data_ptr(), out.data_ptr(),
+        part.data_ptr() if part is not None else None, B, KV, G, D, S,
+        *k_bits.stride(), bs, n_blocks, per, splits, *lanes, D ** -0.5,
+        e, fmt.n, fmt.es, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"posit_kv_attention: CUDA launch failed (cudaError {rc})")

@@ -10,7 +10,17 @@
 * ``posit_matmul`` — ``decode(A_bits[M,K]) · decode(B_bits[K,N])`` → f32,
   the posit bits read straight from device memory, each tile decoded to
   bf16 (the reference's compute dtype) and accumulated in f32.  Replaces
-  ``posit_matmul`` (``ops.matmul``).  Its plain version is
+  ``posit_matmul`` (``ops.matmul``).  The kernel's schedule, chosen by
+  ``matmul_plan``: persistent blocks walk work units, each a 64 × BN
+  output tile (BN = 64, 128 or 256) over a contiguous range of 64-deep K
+  slabs; a block stages the slab after next's bits with ``cp.async``,
+  decodes the current slab (for a posit of up to 16 bits, where it pays,
+  through a table of all 2^n bf16 values) into swizzled bf16 tiles in
+  shared memory and multiplies them on the tensor cores (``wgmma``),
+  adding each slab's f32 product into an f32 register accumulator.  When
+  the output tiles alone would leave SMs idle, K is split across work
+  units, each split writes an f32 partial tile to scratch and a second
+  kernel adds the splits in a fixed order.  Its plain version is
   ``core.quire.quire_matmul_ref``; the two sum in other orders, so they
   agree to f32 accumulation error, not bitwise.
 
@@ -21,6 +31,9 @@ version.  Each wrapper counts its launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
+import itertools
+from typing import Tuple
 
 import torch
 
@@ -43,7 +56,7 @@ def _kernels() -> ctypes.CDLL:
             f = getattr(lib, f"posit_matmul_round_{sfx}")
             f.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
             f.restype = _I
-        lib.posit_matmul_decode.argtypes = [_P, _P, _P] + [_I] * 6 + [_P]
+        lib.posit_matmul_decode.argtypes = [_P] * 4 + [_I] * 11 + [_P]
         lib.posit_matmul_decode.restype = _I
         _lib = lib
     return _lib
@@ -91,6 +104,88 @@ posit_matmul_round.launches = 0
 
 _BITS_DTYPES = (torch.int8, torch.int16, torch.int32)
 
+# The decode-fused kernel's geometry (csrc/posit_matmul.cu) and the H100's
+# limits the plan fits it to.
+_BM, _BK = 64, 64                  # output rows per block, slab depth
+_TABLE_BITS = 16                   # posits up to 16 bits decode by table
+_BLOCK_SMEM = 232448               # dynamic shared memory one block may use
+_SM_SMEM = 233472                  # an SM's shared memory (1 KB per block)
+_SM_THREADS, _SM_REGS = 2048, 65536
+_THREADS, _REGS_PER_THREAD = 512, 128   # a block; __launch_bounds__ caps
+# The plan's cost model, estimates for one SM of the H100: ~3e9 posit
+# decodes a second by arithmetic (some 30 integer operations each at 64
+# integer lanes x 1.755 GHz), ~9e9 by table (one 2-byte shared-memory
+# load, ~3.5-way bank conflicts on random patterns); the split partials
+# cost their bytes at 3.35 TB/s and the combine launch a few microseconds.
+_DECODES_PER_SM_S = 3e9
+_LOOKUPS_PER_SM_S = 9e9
+_HBM_BYTES_S = 3.35e12
+_COMBINE_S = 3e-6
+_MAX_SPLITS = 16
+
+
+def _wgmma_smem(bn: int, bits_size: int, nbits: int, table: bool) -> int:
+    """Dynamic shared memory of one block (``wgmma_smem_bytes`` in
+    csrc/posit_matmul.cu): the alignment pad, the swizzled bf16 tiles, two
+    stages of raw bits and, when used, the bf16 table."""
+    return 1024 + 2 * (_BM + bn) * 128 \
+        + 2 * (_BM * _BK + _BK * bn) * bits_size + (2 << nbits if table else 0)
+
+
+@functools.lru_cache(maxsize=1024)
+def matmul_plan(M: int, N: int, K: int, bits_size: int, nbits: int,
+                sms: int) -> Tuple[int, int, int, int, bool]:
+    """(bn, splits, slabs_per_split, grid, table) for the decode-fused
+    kernel.
+
+    The kernel's time is the decoding: a work unit (a 64 × bn output tile
+    over one split of the 64-deep K slabs) decodes 64 × (64 + bn) values
+    per slab, and ``grid`` persistent blocks, as many as fit on the SMs,
+    share the units, so each SM runs ``ceil(units / sms)`` of them.  A
+    posit of up to 16 bits may decode by a table of its 2^n bf16 values
+    that each block builds once (``table``).  Among the widths that fit
+    shared memory, with and without the table, and the K splits that leave
+    no split empty, the plan takes the least estimated time (the table's
+    build, the decoding, plus the partials' bytes and the combine launch
+        when K is split), the fewer splits, the wider tile and then the table
+    on a tie.  A wide ``bn`` decodes the A panel once per ``bn`` columns;
+    splitting K fills the card when the output tiles are few (M = 64
+    rows)."""
+    slabs = max(1, -(-K // _BK))
+    m_tiles = -(-M // _BM)
+    best = None
+    for bn, table in itertools.product((256, 128, 64), (True, False)):
+        if table and nbits > _TABLE_BITS:
+            continue
+        smem = _wgmma_smem(bn, bits_size, nbits, table)
+        if smem > _BLOCK_SMEM:
+            continue
+        rate = _LOOKUPS_PER_SM_S if table else _DECODES_PER_SM_S
+        per_sm = min(_SM_SMEM // (smem + 1024), _SM_THREADS // _THREADS,
+                     _SM_REGS // (_THREADS * _REGS_PER_THREAD))
+        tiles = m_tiles * -(-N // bn)
+        for per in range(slabs, 0, -1):
+            splits = -(-slabs // per)
+            if splits > _MAX_SPLITS:
+                break
+            if per > 1 and -(-slabs // (per - 1)) == splits:
+                continue        # the same splits, more evenly cut below
+            units = tiles * splits
+            grid = min(units, sms * per_sm)
+            t = -(-units // sms) * per * _BM * (_BM + bn) / rate
+            if table:
+                t += -(-grid // sms) * 2 ** nbits / _DECODES_PER_SM_S
+            if splits > 1:
+                t += (2 * splits + 1) * M * N * 4 / _HBM_BYTES_S + _COMBINE_S
+            key = (t, splits, -bn, not table)
+            if best is None or key < best[0]:
+                best = (key, (bn, splits, per, grid, table))
+    if best is None:
+        raise ValueError(f"posit_matmul: no tile fits shared memory for "
+                         f"{bits_size}-byte patterns")
+    return best[1]
+
+
 
 def posit_matmul_torch(a_bits: torch.Tensor, b_bits: torch.Tensor,
                        fmt: PositFormat) -> torch.Tensor:
@@ -121,10 +216,16 @@ def posit_matmul(a_bits: torch.Tensor, b_bits: torch.Tensor,
         raise ValueError("posit_matmul: dims must fit int32")
     out = torch.empty((M, N), dtype=torch.float32, device=a_bits.device)
     if M and N:
+        bn, splits, per, grid, table = matmul_plan(
+            M, N, K, a_bits.element_size(), fmt.n,
+            build.sm_count(a_bits.device.index))
+        part = (torch.empty((splits, M, N), dtype=torch.float32,
+                            device=a_bits.device) if splits > 1 else None)
         rc = _kernels().posit_matmul_decode(
-            a_bits.data_ptr(), b_bits.data_ptr(), out.data_ptr(), M, K, N,
-            a_bits.element_size(), fmt.n, fmt.es,
-            torch.cuda.current_stream(a_bits.device).cuda_stream)
+            a_bits.data_ptr(), b_bits.data_ptr(), out.data_ptr(),
+            part.data_ptr() if part is not None else None, M, K, N,
+            a_bits.element_size(), fmt.n, fmt.es, bn, splits, per, grid,
+            int(table), torch.cuda.current_stream(a_bits.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(
                 f"posit_matmul: CUDA launch failed (cudaError {rc})")

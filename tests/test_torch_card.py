@@ -121,7 +121,8 @@ def test_encode_kernel_bitwise(name, dev):
 
 
 @pytest.mark.parametrize("name", ["posit8", "posit16"])
-@pytest.mark.parametrize("S,bs", [(96, 512), (1000, 256), (37, 16)])
+@pytest.mark.parametrize("S,bs", [(96, 512), (1000, 256), (37, 16),
+                                  (4096, 512)])
 def test_kv_attention_kernel_within_tolerance(name, S, bs, dev):
     """Ragged per-row lengths, S not a multiple of bs, and one layer of a
     layer-stacked cache read in place through its strides."""
@@ -140,6 +141,51 @@ def test_kv_attention_kernel_within_tolerance(name, S, bs, dev):
     p = posit_kv_attention_torch(q, kb, vb, lengths, fmt, bs=bs)
     assert torch.allclose(k, p, rtol=2e-5, atol=2e-5)
     assert torch.all(k[0] == 0)
+
+
+@pytest.mark.parametrize("name", ["posit8", "posit16"])
+def test_kv_attention_split_path(name, dev):
+    """S = 4096 runs in several splits per (row, KV head) on this card; the
+    merged result is the plain version's, a length-0 row exactly 0."""
+    from repro_torch.kernels.posit_codec import posit_encode_torch
+    from repro_torch.kernels.posit_kv_attention import (
+        kv_split_plan, posit_kv_attention, posit_kv_attention_torch)
+    fmt = get_format(name)
+    B, S, KV, G, D = 4, 4096, 8, 4, 128
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert kv_split_plan(S, 512, B * KV, sms)[3] > 1
+    g = torch.Generator().manual_seed(11)
+    q = torch.randn(B, KV, G, D, generator=g).to(dev)
+    kb, vb = (posit_encode_torch(torch.randn(B, S, KV, D, generator=g),
+                                 fmt).to(dev) for _ in range(2))
+    lengths = torch.tensor([0, 1, 777, S], dtype=torch.int32, device=dev)
+    k = posit_kv_attention(q, kb, vb, lengths, fmt)
+    p = posit_kv_attention_torch(q, kb, vb, lengths, fmt)
+    assert torch.allclose(k, p, rtol=2e-5, atol=2e-5)
+    assert torch.all(k[0] == 0)
+
+
+def test_kv_attention_never_reads_masked_positions(dev):
+    """A NaR pattern past a row's length: the kernel never reads it, while
+    the plain version multiplies its NaN by a zero weight (ROADMAP §C)."""
+    from repro_torch.kernels.posit_codec import posit_encode_torch
+    from repro_torch.kernels.posit_kv_attention import (
+        posit_kv_attention, posit_kv_attention_torch)
+    fmt = get_format("posit8")
+    g = torch.Generator().manual_seed(12)
+    q = torch.randn(2, 8, 4, 128, generator=g).to(dev)
+    kb, vb = (posit_encode_torch(torch.randn(2, 1024, 8, 128, generator=g),
+                                 fmt).to(dev) for _ in range(2))
+    vb[:, 900:] = fmt.nar_pattern - (1 << fmt.n)      # NaR, as int8
+    lengths = torch.tensor([600, 900], dtype=torch.int32, device=dev)
+    k = posit_kv_attention(q, kb, vb, lengths, fmt, bs=256)
+    p = posit_kv_attention_torch(q, kb, vb, lengths, fmt, bs=256)
+    assert torch.all(torch.isfinite(k))
+    assert torch.all(torch.isnan(p[1])) and torch.all(torch.isnan(p[0]))
+    vb[:, 900:] = 0
+    assert torch.allclose(
+        k, posit_kv_attention_torch(q, kb, vb, lengths, fmt, bs=256),
+        rtol=2e-5, atol=2e-5)
 
 
 def test_serve_kernel_route_matches_plain_route(dev):
@@ -191,7 +237,7 @@ def test_fma_kernel_bitwise(name, dtype, dev):
 
 @pytest.mark.parametrize("name", ["posit8", "posit16"])
 @pytest.mark.parametrize("mkn", [(128, 256, 256), (64, 1000, 300),
-                                 (1, 7, 5)])
+                                 (1, 7, 5), (64, 4096, 1024)])
 def test_decode_matmul_kernel_within_tolerance(name, mkn, dev):
     from repro_torch.kernels.posit_codec import posit_encode_torch
     from repro_torch.kernels.posit_matmul import (posit_matmul,
@@ -202,6 +248,26 @@ def test_decode_matmul_kernel_within_tolerance(name, mkn, dev):
     a = posit_encode_torch(torch.randn(M, K, generator=g), fmt).to(dev)
     b = posit_encode_torch(torch.randn(K, N, generator=g) / K ** 0.5,
                            fmt).to(dev)
+    k = posit_matmul(a, b, fmt)
+    p = posit_matmul_torch(a, b, fmt)
+    assert float((k - p).abs().max()) <= 1e-5 * float(p.abs().max())
+
+
+@pytest.mark.parametrize("name,widen", [("posit16", True),
+                                        ("posit24", False)])
+def test_decode_matmul_kernel_int32_container(name, widen, dev):
+    """int32 patterns: posit16 bits widened, and posit24's own storage;
+    a ragged shape."""
+    from repro_torch.kernels.posit_codec import posit_encode_torch
+    from repro_torch.kernels.posit_matmul import (posit_matmul,
+                                                  posit_matmul_torch)
+    fmt = get_format(name)
+    M, K, N = 70, 333, 200
+    g = torch.Generator().manual_seed(13)
+    a = posit_encode_torch(torch.randn(M, K, generator=g), fmt)
+    b = posit_encode_torch(torch.randn(K, N, generator=g) / K ** 0.5, fmt)
+    a, b = (t.to(torch.int32).to(dev) for t in (a, b))
+    assert a.dtype == torch.int32 and (widen or fmt.n > 16)
     k = posit_matmul(a, b, fmt)
     p = posit_matmul_torch(a, b, fmt)
     assert float((k - p).abs().max()) <= 1e-5 * float(p.abs().max())

@@ -1,0 +1,166 @@
+"""The launch plans of the two redesigned kernels, and the posit-KV
+attention's split-and-combine schedule in plain torch.
+
+``kv_split_plan`` (B6) and ``matmul_plan`` (B7) are pure Python, so their
+guarantees are held here: every split non-empty, every key block or K slab
+covered once, one split where the cache fits one key block, enough thread
+blocks to fill 132 SMs at the long cache and at the FFN width.  The CUDA
+kernel's schedule for B6 (key blocks split across thread blocks, masked
+blocks and rows never read, (m, l, acc) partials merged in split order) is
+mirrored op for op by ``split_schedule`` below and held within rtol = atol
+= 2e-5 (the reference's kernel-vs-oracle tolerance) against the port's
+plain version and against the TPU kernel in interpret mode.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.formats import PositFormat as JPositFormat
+from repro.kernels import ref
+from repro.kernels.posit_kv_attention import posit_kv_attention as jkv
+from repro_torch.core.formats import PositFormat
+from repro_torch.core.posit import decode
+from repro_torch.kernels.posit_kv_attention import (BLOCKS_PER_SM, NEG_INF,
+                                                    block_plan,
+                                                    kv_split_plan,
+                                                    posit_kv_attention_torch)
+from repro_torch.kernels.posit_matmul import matmul_plan
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("S,bs", [(1, 512), (96, 512), (512, 512),
+                                  (513, 512), (1000, 256), (4096, 512),
+                                  (32768, 512), (37, 16), (100000, 512)])
+@pytest.mark.parametrize("n_heads", [1, 4, 32, 528])
+def test_kv_split_plan_covers_every_key_block_once(S, bs, n_heads):
+    bs2, n_blocks, per, splits = kv_split_plan(S, bs, n_heads, H100_SMS)
+    assert (bs2, n_blocks * bs2) == block_plan(S, bs)
+    assert per >= 1 and splits >= 1
+    # split s holds key blocks [s per, min((s + 1) per, n_blocks)): none
+    # empty, together every block once
+    covered = [b for s in range(splits)
+               for b in range(s * per, min((s + 1) * per, n_blocks))]
+    assert covered == list(range(n_blocks))
+    assert all(s * per < n_blocks for s in range(splits))
+    if S <= bs:
+        assert splits == 1
+    if n_heads * n_blocks >= BLOCKS_PER_SM * H100_SMS:
+        assert n_heads * splits >= BLOCKS_PER_SM * H100_SMS
+
+
+def test_kv_split_plan_at_the_long_cache_and_the_serve_shape():
+    # B x KV = 32 heads: at least 4 thread blocks per SM at S = 32768, one
+    # split (and so no combine launch) at the serve path's 96 slots
+    _, _, _, splits = kv_split_plan(32768, 512, 32, H100_SMS)
+    assert 32 * splits >= 4 * H100_SMS
+    assert kv_split_plan(96, 512, 32, H100_SMS)[3] == 1
+
+
+_SLABS = 64          # the kernel's K slab depth
+
+
+@pytest.mark.parametrize("M,N,K", [(64, 12288, 4096), (128, 256, 256),
+                                   (1, 5, 7), (64, 300, 1000),
+                                   (64, 1024, 4096), (70, 200, 333),
+                                   (4096, 4096, 4096), (3, 4, 0)])
+@pytest.mark.parametrize("bits_size,nbits", [(1, 8), (2, 16), (4, 24)])
+def test_matmul_plan_covers_every_slab_once(M, N, K, bits_size, nbits):
+    bn, splits, per, grid, table = matmul_plan(M, N, K, bits_size, nbits,
+                                               H100_SMS)
+    assert bn in (64, 128, 256) and splits >= 1 and per >= 1
+    slabs = max(1, -(-K // _SLABS))
+    covered = [k for s in range(splits)
+               for k in range(s * per, min((s + 1) * per, slabs))]
+    assert covered == list(range(slabs))
+    assert all(s * per < slabs for s in range(splits))
+    units = -(-M // 64) * -(-N // bn) * splits
+    assert 1 <= grid <= units
+    assert not table or nbits <= 16
+
+
+def test_matmul_plan_fills_the_card_at_the_ffn_width():
+    """(64, 4096)·(4096, 12288): at least ~1.5 work units per SM, and the
+    A panel decoded once per bn >= 128 columns."""
+    for bits_size, nbits in ((1, 8), (2, 16)):
+        bn, splits, _, grid, _ = matmul_plan(64, 12288, 4096, bits_size,
+                                             nbits, H100_SMS)
+        assert bn >= 128
+        assert (12288 // bn) * splits >= 1.5 * H100_SMS
+        assert grid == H100_SMS
+
+
+def split_schedule(q, k_bits, v_bits, lengths, fmt, bs, sms):
+    """The CUDA kernel's schedule in plain torch: each (row, KV head) runs
+    the online softmax over each split's key blocks separately, reading
+    only positions below its length, and the splits' (m, l, acc) are
+    merged in split order."""
+    B, KV, G, D = q.shape
+    S = k_bits.shape[1]
+    bs, n_blocks, per, splits = kv_split_plan(S, bs, B * KV, sms)
+    out = torch.zeros((B, KV, G, D))
+    for b in range(B):
+        length = min(int(lengths[b]), S)
+        for h in range(KV):
+            parts = []
+            for s in range(splits):
+                m = torch.full((G,), NEG_INF)
+                l = torch.zeros(G)
+                acc = torch.zeros(G, D)
+                for blk in range(s * per, min((s + 1) * per, n_blocks)):
+                    base = blk * bs
+                    if base >= length:
+                        break
+                    valid = min(bs, length - base)
+                    k = decode(k_bits[b, base:base + valid, h], fmt)
+                    v = decode(v_bits[b, base:base + valid, h], fmt)
+                    logits = (q[b, h] @ k.T) * (D ** -0.5)
+                    mx = logits.amax(dim=-1)
+                    if valid < bs:
+                        mx = torch.clamp(mx, min=NEG_INF)
+                    m_new = torch.maximum(m, mx)
+                    p = torch.exp(logits - m_new[:, None])
+                    alpha = torch.exp(m - m_new)
+                    l = l * alpha + p.sum(dim=-1)
+                    acc = acc * alpha[:, None] + p @ v
+                    m = m_new
+                parts.append((m, l, acc))
+            M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+            num, den = torch.zeros(G, D), torch.zeros(G)
+            for m, l, acc in parts:
+                w = torch.exp(m - M)
+                num = num + w[:, None] * acc
+                den = den + w * l
+            out[b, h] = num / torch.clamp(den, min=1e-30)[:, None]
+    return out, splits
+
+
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("S,bs", [(200, 64), (1000, 256)])
+def test_split_schedule_matches_plain_and_pallas_kernel(n, S, bs):
+    B, KV, G, D = 4, 1, 4, 16
+    rng = np.random.default_rng(S + n)
+    jf = JPositFormat(n, 2)
+    q = rng.standard_normal((B, KV, G, D)).astype(np.float32)
+    kv = rng.standard_normal((2, B, S, KV, D)).astype(np.float32)
+    k = np.array(ref.encode_ref(jnp.asarray(kv[0]), jf))
+    v = np.array(ref.encode_ref(jnp.asarray(kv[1]), jf))
+    lengths = np.array([0, 1, S // 2 + 3, S + 5], np.int32)
+    fmt = PositFormat(n, 2)
+    got, splits = split_schedule(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), lengths, fmt, bs,
+                                 sms=H100_SMS)
+    assert splits > 1
+    assert torch.all(got[0] == 0)
+    plain = posit_kv_attention_torch(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(lengths), fmt, bs=bs)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+    for b in range(B):
+        want = np.asarray(jkv(jnp.asarray(q[b, 0]), jnp.asarray(k[b, :, 0]),
+                              jnp.asarray(v[b, :, 0]),
+                              jnp.asarray(lengths[b], jnp.int32), jf, bs=bs,
+                              interpret=True))
+        np.testing.assert_allclose(got[b, 0].numpy(), want, **TOL)
