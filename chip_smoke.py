@@ -6,18 +6,23 @@
 Phases, each fatal on failure:
   1. the card's name and power limit, then the build of the CUDA kernels
      (one nvcc per source, in parallel) and its time, the registers and
-     spills ``nvcc -Xptxas -v`` reports for the decode-fused matmul and the
-     KV-attention, and the HGMMA (``wgmma``) instructions in the matmul's
-     SASS;
+     spills ``nvcc -Xptxas -v`` reports for the codec, the round, the
+     decode-fused matmul and the KV-attention, and the HGMMA (``wgmma``)
+     instructions in the matmul's SASS;
   2. each kernel against its plain torch version on the card: the round,
      the butterfly, the codec's decode and encode bitwise, the rounded
      matmul within one format ulp, the posit-KV attention within
-     rtol = atol = 2e-5;
+     rtol = atol = 2e-5; the round and the decode also on views at every
+     element offset within 16 bytes and ragged lengths (every decode
+     container, both output types), the decode tables built on the card
+     against their plain version, the KV-attention at 48 query rows per
+     KV head;
   3. the stream path: a 64-patient fleet (32 cough patients at posit16
      with every fourth pinned to fp16, 32 ECG patients at posit10 with
      every fourth pinned to posit8)
      streamed in ragged chunks through ``StreamEngine``, with every window
-     scored exactly once, every stream kernel's launch count above zero,
+     scored exactly once, every stream kernel's launch count above zero
+     (the round's equal to the reference design's 8221),
      and the outputs checked against the same windows run by the port on
      the CPU; then the same fleet once more under ``torch.profiler`` for
      the device's busy share and its top kernels;
@@ -25,15 +30,19 @@ Phases, each fatal on failure:
      per call (profiler: every kernel the call launches, a combine kernel
      included) beside its bound, its plain version's time and, where one
      exists, one library call's; the KV-attention also at S = 32768 (its
-     split path) and the decode-fused matmul also beside the unfused route
-     (the codec's decode of both operands, then ``torch.matmul``);
+     split path), the decode-fused matmul also beside the unfused route
+     (the codec's decode of both operands, then ``torch.matmul``), the
+     decode at every serve weight shape, the round at the fleet's two
+     shapes beside an empty kernel's bare launch, with the host time of
+     each step of its wrapper;
   5. the serve path: qwen3-8b at full width (36 layers, random weights from
      a seeded generator on the card) behind ``ServingEngine`` with two
      lanes (posit16 weights; posit8 and posit16 KV), 12 requests, every
      request completed once, the codec and KV-attention kernels launched
      (36 KV-attention launches per decode step), greedy tokens reproduced
      by a second engine with eight of its steps under ``torch.profiler``
-     (the device's busy share), the KV-attention kernel
+     (the device's busy share, the weight decode's device time per
+     lane-step beside its byte bound), the KV-attention kernel
      held against its plain version on the live cache, and the reduced
      config's logits on the card against the same weights on the CPU;
   6. the format study: R-peak F1 over nine formats and cough AUC over
@@ -73,6 +82,7 @@ N_WINDOWS = 4
 MAX_BATCH = 32
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+FLEET_ROUND_LAUNCHES = 8221    # the 64-patient fleet's posit_round launches
 SERVE_ARCH = "qwen3-8b"
 SERVE_BATCH = 4                # slots per lane
 SERVE_MAX_PROMPT = 64
@@ -270,6 +280,22 @@ def check_kernels(dev, report):
                                  f"equal to its plain version")
         err = max(err, max_abs_err(k, p))
         log(f"  posit_round {name} {str(x.dtype)[6:]} n={x.numel()}: bitwise")
+    # the 16-byte accesses' head and tail: views at every element offset
+    # within 16 bytes, ragged lengths, a 0-d tensor
+    fmt = get_format("posit10")
+    for x in (cases[2][1], cases[-1][1]):
+        per = 16 // x.element_size()
+        views = [x[off:off + n] for off in range(per)
+                 for n in (1, per + 1, 4099, 100003)] + [x[5]]
+        for v in views:
+            k, p = posit_round(v, fmt), posit_round_torch(v, fmt)
+            torch.cuda.synchronize()
+            if not bits_equal(k, p):
+                raise AssertionError(f"posit_round {x.dtype} view at offset "
+                                     f"{v.storage_offset()} of "
+                                     f"{v.numel()}: not bitwise equal")
+        log(f"  posit_round {str(x.dtype)[6:]}: {len(views)} views at element"
+            f" offsets 0-{per - 1}, ragged lengths and 0-d: bitwise")
     report["posit_round"]["max_abs_err"] = err
 
     # posit_butterfly: FFT stage planes at cough batch 32, both layouts
@@ -357,12 +383,14 @@ def check_serve_kernels(dev, report):
     """Decode and encode bitwise; the posit-KV attention within 2e-5."""
     import torch
     from repro_torch.core.formats import PositFormat, get_format
-    from repro_torch.kernels.posit_codec import (posit_decode,
+    from repro_torch.kernels.posit_codec import (decode_table, posit_decode,
+                                                 posit_decode_table_torch,
                                                  posit_decode_torch,
                                                  posit_encode,
                                                  posit_encode_torch)
     from repro_torch.kernels.posit_kv_attention import (
-        kv_split_plan, posit_kv_attention, posit_kv_attention_torch)
+        kv_split_plan, posit_kv_attention, posit_kv_attention_torch,
+        query_groups)
     gen = torch.Generator().manual_seed(SEED + 2)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -386,6 +414,44 @@ def check_serve_kernels(dev, report):
                                      f"its plain version")
         log(f"  posit_decode {fmt.name} {bits.numel()} patterns to f32 and "
             f"bf16: bitwise")
+    for name in ("posit8", "posit10", "posit12", "posit16", "posit16e3"):
+        for out_dtype in (torch.float32, torch.bfloat16):
+            fmt = get_format(name)
+            idt = torch.int32 if out_dtype == torch.float32 else torch.int16
+            if not torch.equal(
+                    decode_table(fmt, out_dtype, dev).cpu().view(idt),
+                    posit_decode_table_torch(fmt, out_dtype).view(idt)):
+                raise AssertionError(f"posit_decode table {name} "
+                                     f"{out_dtype}: the card's differs from "
+                                     f"its plain version")
+    log("  posit_decode tables built on the card (posit8/10/12/16/16e3, f32 "
+        "and bf16): bitwise equal to their plain version")
+    # the 16-byte accesses' head and tail: every container, both outputs,
+    # views at every element offset within 16 bytes, ragged lengths
+    n_views = 0
+    for name, container in (("posit8", torch.int8), ("posit16", torch.int16),
+                            ("posit16", torch.int32),
+                            ("posit32", torch.int32)):
+        fmt = get_format(name)
+        lo = -(1 << (fmt.n - 1))
+        base = torch.randint(lo, -lo, (1 << 20,), generator=gen,
+                             dtype=torch.int64).to(container).to(dev)
+        per = 16 // base.element_size()
+        for off in range(per):
+            for n in (1, per - 1, per + 1, 4099, 100003):
+                v = base[off:off + n]
+                for out_dtype in (torch.float32, torch.bfloat16):
+                    k = posit_decode(v, fmt, out_dtype)
+                    p = posit_decode_torch(v, fmt, out_dtype)
+                    torch.cuda.synchronize()
+                    if not nan_aware_equal(k, p):
+                        raise AssertionError(
+                            f"posit_decode {name} in {container} -> "
+                            f"{out_dtype}, offset {off}, length {n}: not "
+                            f"bitwise equal to its plain version")
+                    n_views += 1
+    log(f"  posit_decode {n_views} views (int8/int16/int32 containers, f32 "
+        f"and bf16, element offsets 0-15, ragged lengths): bitwise")
     report["posit_decode"]["max_abs_err"] = 0.0
 
     # encode: random f32 with specials, every lattice point and midpoint
@@ -424,6 +490,24 @@ def check_serve_kernels(dev, report):
                 f"{lengths.tolist()}, plan (bs, key blocks, blocks per "
                 f"split, splits) {kv_split_plan(S, 512, 32, sms)}: within "
                 f"2e-5, max abs err {max_abs_err(k, p):.3g}")
+        # granite-20b's 48 query rows over one KV head, D = 128
+        for S in (96, 4096):
+            q, kb, vb = kv_case(gen, 4, S, 1, 48, 128, fmt, dev)
+            lengths = torch.tensor([1, S // 3, S - 1, S], dtype=torch.int32,
+                                   device=dev)
+            k = posit_kv_attention(q, kb, vb, lengths, fmt)
+            p = posit_kv_attention_torch(q, kb, vb, lengths, fmt)
+            torch.cuda.synchronize()
+            if not torch.allclose(k, p, **KV_TOL):
+                raise AssertionError(f"posit_kv_attention {name} G=48 S={S}:"
+                                     f" {max_abs_err(k, p)} from its plain "
+                                     f"version")
+            err = max(err, max_abs_err(k, p))
+            log(f"  posit_kv_attention {name} q (4, 1, 48, 128), K/V (4, "
+                f"{S}, 1, 128), query groups (rows, groups) "
+                f"{query_groups(48, 128)}, splits "
+                f"{kv_split_plan(S, 512, 4, sms)[3]}: within 2e-5, max abs "
+                f"err {max_abs_err(k, p):.3g}")
     report["posit_kv_attention"]["max_abs_err"] = err
 
 
@@ -1035,24 +1119,48 @@ def serve_reduced_on_card_and_cpu(dev):
 def profile_serve(dev, model, params, reqs, want, card):
     """A second engine with the same seed and requests: every greedy token
     reproduced, and the device's busy share under ``torch.profiler`` over
-    a steady window of engine steps (all slots decoding)."""
+    a steady window of engine steps (all slots decoding), with the weight
+    decode's device time per lane-step beside its byte bound (every
+    decoded value read and written once)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import quant
     engine = serve_engine(model, params, dev)
     subs = submit_all(engine, reqs)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     step, wall = 0, 0.0
-    while not engine.scheduler.idle:
-        if step == PROFILE_STEPS[0]:
-            torch.cuda.synchronize()
-            prof.start()
-            t0 = time.perf_counter()
-        engine.step()
-        if step == PROFILE_STEPS[1] - 1:
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            prof.stop()
-        step += 1
+    real = quant.posit_decode
+    decoded = {"bytes": 0, "calls": 0}
+
+    def counted(bits, fmt, out_dtype=torch.float32):
+        decoded["bytes"] += bits.numel() * (
+            bits.element_size() + (2 if out_dtype == torch.bfloat16 else 4))
+        decoded["calls"] += 1
+        return real(bits, fmt, out_dtype)
+
+    def lane_steps():     # the lanes' rows, not the "fleet" row's sum
+        return sum(r["decode_steps"] for lane, r in
+                   engine.ledger.summary().items() if lane != "fleet")
+    steps0 = n_lane = 0
+    try:
+        while not engine.scheduler.idle:
+            if step == PROFILE_STEPS[0]:
+                torch.cuda.synchronize()
+                steps0 = lane_steps()
+                quant.posit_decode = counted
+                prof.start()
+                t0 = time.perf_counter()
+            engine.step()
+            if step == PROFILE_STEPS[1] - 1:
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                prof.stop()
+                quant.posit_decode = real
+                n_lane = lane_steps() - steps0
+            step += 1
+    finally:
+        quant.posit_decode = real
     got = {c.rid: c.tokens for c in engine.scheduler.pop_completions()}
     n_greedy = 0
     for rid, (r, _) in subs.items():
@@ -1067,6 +1175,19 @@ def profile_serve(dev, model, params, reqs, want, card):
     report_busy(prof, wall, f"under the profiler, engine steps "
                 f"{PROFILE_STEPS[0]}-{PROFILE_STEPS[1] - 1} (both lanes "
                 f"decoding) ({card})", 8)
+    dec_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and "posit_decode_kernel" in e.key)
+    if n_lane and dec_us:
+        log(f"  weight decode in that window: {decoded['calls']} launches, "
+            f"{dec_us / 1e3:.3f} ms on the device over {n_lane} lane-steps,"
+            f" {dec_us / 1e3 / n_lane:.3f} ms per lane-step against a byte "
+            f"bound of {decoded['bytes'] / n_lane / HBM_BYTES_PER_S * 1e3:.3f}"
+            f" ms ({decoded['bytes'] / n_lane / 1e9:.2f} GB per lane-step) "
+            f"({card})")
+    else:
+        log("  weight decode in that window: not measured (no lane-step or "
+            "no device time recorded)")
 
 
 # ---------------------------------------------------------------------------
@@ -1204,21 +1325,9 @@ def time_kernels(dev, shapes, report):
                                                   posit_matmul_round_torch)
     from repro_torch.kernels.posit_round import (posit_butterfly,
                                                  posit_butterfly_torch,
-                                                 posit_round,
                                                  posit_round_torch)
     fmt = get_format("posit16")
     gen = torch.Generator().manual_seed(SEED + 1)
-
-    # round: the ingest rounding of one cough batch, (32, 2, 4096) f32
-    x = (torch.randn(MAX_BATCH, 2, FFT_N, generator=gen) * 2.0 ** 17).to(dev)
-    nbytes = 2 * x.numel() * 4
-    report["posit_round"].update(
-        ms=cuda_ms(lambda: posit_round(x, fmt)),
-        device_ms=device_ms(lambda: posit_round(x, fmt),
-                            "posit_round_kernel"),
-        plain_ms=cuda_ms(lambda: posit_round_torch(x, fmt)),
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None, shape=list(x.shape))
 
     # butterfly: one transposed Stockham stage plane of that batch
     plan = get_fft_plan(FFT_N, fmt.name, torch.float32, str(dev))
@@ -1307,6 +1416,107 @@ def time_format_kernels(dev, report):
         unfused_ms=cuda_ms(unfused), shape=[M, K, N, "posit16"])
 
 
+def earlier_posit_round(x, fmt):
+    """The round wrapper as it stood before its host path was cut
+    (``_check_cuda``, a ``getattr`` on the library and a
+    ``torch.cuda.current_stream`` object each call), launching today's
+    kernel: timed beside the wrapper, in one run, on one card."""
+    import torch
+    from repro_torch.kernels import posit_round as pr
+    pr._check_cuda("posit_round", x)
+    out = torch.empty_like(x)
+    if x.numel():
+        fn = getattr(pr._kernels(), f"posit_round_{pr._SUFFIX[x.dtype]}")
+        pr._raise_on(fn(x.data_ptr(), out.data_ptr(), x.numel(), fmt.n,
+                        fmt.es,
+                        torch.cuda.current_stream(x.device).cuda_stream),
+                     "posit_round")
+    return out
+
+
+def host_us(fn, calls: int = 10000) -> float:
+    """Host microseconds per call over ``calls`` back-to-back calls, after
+    warmup, the queue drained before and after."""
+    import torch
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def time_round_host(dev, report):
+    """B1 at the fleet's shapes, (32, 2, 4096) and a 0-d f32 (the 2-means'
+    scalars, the most launched), beside an empty kernel's bare launch: per
+    call (CUDA events), on the device (profiler), and the host time of
+    each step of the earlier wrapper (``earlier_posit_round``), 10^4
+    calls each.  Returns the rows logged beside the JSON line's."""
+    import torch
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels import posit_round as pr
+    lib = pr._kernels()
+    idx = torch.cuda.current_device()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = []
+
+    def empty():
+        return lib.posit_empty_launch(stream)
+    floor_ms = cuda_ms(empty)
+    floor_dev = device_ms(empty, "empty_kernel")
+    log(f"  bare launch of an empty kernel through ctypes: {floor_ms:.4f} ms"
+        f" per call ({floor_dev:.4f} ms on the device)")
+    gen = torch.Generator().manual_seed(SEED + 7)
+    # the cough batch's ingest rounding (posit16), an ECG 2-means scalar
+    for shape, fmt in (((MAX_BATCH, 2, 4096), get_format("posit16")),
+                       ((), get_format("posit10"))):
+        x = (torch.randn(shape, generator=gen) * 2.0 ** 17).to(dev)
+        out = torch.empty_like(x)
+        fn = lib.posit_round_f32
+        xp, op, n = x.data_ptr(), out.data_ptr(), x.numel()
+        steps = {
+            "_check_cuda": lambda: pr._check_cuda("posit_round", x),
+            "torch.empty_like": lambda: torch.empty_like(x),
+            "torch.cuda.current_stream(...).cuda_stream":
+                lambda: torch.cuda.current_stream(x.device).cuda_stream,
+            "torch._C._cuda_getCurrentRawStream":
+                lambda: torch._C._cuda_getCurrentRawStream(idx),
+            "getattr on the library": lambda: getattr(lib,
+                                                      "posit_round_f32"),
+            "two data_ptr()": lambda: (x.data_ptr(), out.data_ptr()),
+            "ctypes call (the launch)": lambda: fn(xp, op, n, fmt.n, fmt.es,
+                                                   stream),
+            "bare launch of an empty kernel": empty,
+            "the earlier wrapper": lambda: earlier_posit_round(x, fmt),
+            "the wrapper": lambda: pr.posit_round(x, fmt),
+        }
+        us = {k: host_us(f) for k, f in steps.items()}
+        log(f"  posit_round {list(shape)} f32, host us per call over 10^4 "
+            f"calls: " + "; ".join(f"{k} {v:.2f}" for k, v in us.items()))
+        row = dict(
+            name="posit_round", shape=list(shape),
+            ms=cuda_ms(lambda: pr.posit_round(x, fmt)),
+            device_ms=device_ms(lambda: pr.posit_round(x, fmt),
+                                "posit_round_kernel"),
+            plain_ms=cuda_ms(lambda: pr.posit_round_torch(x, fmt)),
+            bound_ms=2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes", library_ms=None,
+            earlier_ms=cuda_ms(lambda: earlier_posit_round(x, fmt)),
+            floor_ms=floor_ms)
+        log(f"  posit_round {list(shape)}: {row['ms']:.4f} ms per call "
+            f"({row['device_ms']:.4f} ms on the device), the earlier wrapper "
+            f"{row['earlier_ms']:.4f} ms per call, bare launch "
+            f"{floor_ms:.4f} ms")
+        if shape:
+            report["posit_round"].update(row)
+        else:
+            rows.append(row)
+    return rows
+
+
 def time_serve_kernels(dev, report):
     """The serve kernels at serve-path shapes: decode and encode of one
     (4096, 12288) FFN weight, the (4, 1, 8, 128) KV write, and the
@@ -1339,6 +1549,29 @@ def time_serve_kernels(dev, report):
                          reps=2, samples=5),
         bound_ms=n * (2 + 2) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=None, shape=[4096, 12288, "int16->bf16"])
+    # the serve path's other weight shapes (q/o, k/v, FFN down, the
+    # unembedding), and f32 out and posit8 bits at the FFN width
+    for shape, fmt, out_dtype in (
+            ((4096, 4096), p16, torch.bfloat16),
+            ((4096, 1024), p16, torch.bfloat16),
+            ((12288, 4096), p16, torch.bfloat16),
+            ((152064, 4096), p16, torch.bfloat16),
+            ((4096, 12288), p16, torch.float32),
+            ((4096, 12288), get_format("posit8"), torch.bfloat16)):
+        b = torch.randint(-(1 << (fmt.n - 1)), 1 << (fmt.n - 1), shape,
+                          device=dev, dtype=torch.int32).to(
+                              fmt.storage_dtype)
+        out_size = 2 if out_dtype == torch.bfloat16 else 4
+        rows.append(dict(
+            name="posit_decode",
+            shape=[*shape, f"{str(b.dtype)[6:]}->{str(out_dtype)[6:]}"],
+            ms=cuda_ms(lambda: posit_decode(b, fmt, out_dtype)),
+            device_ms=device_ms(lambda: posit_decode(b, fmt, out_dtype),
+                                "posit_decode_kernel"),
+            plain_ms=None,
+            bound_ms=b.numel() * (b.element_size() + out_size)
+            / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None))
+        del b
     report["posit_encode"].update(
         ms=cuda_ms(lambda: posit_encode(w, p16)),
         device_ms=device_ms(lambda: posit_encode(w, p16),
@@ -1430,7 +1663,8 @@ def main() -> int:
     libs = build.build()
     log(f"  built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name in ("posit_matmul", "posit_kv_attention"):
+    for name in ("posit_codec", "posit_round", "posit_matmul",
+                 "posit_kv_attention"):
         text = build.BUILD_LOGS.get(name)
         if text is None:
             log(f"  nvcc -Xptxas -v {name}.cu: built before this run, no "
@@ -1500,6 +1734,10 @@ def main() -> int:
                                                           counters)
     check_main_path(engine, records, pins, forest, wall,
                     {k: launches[k] for k in stream_kernels})
+    if launches["posit_round"] != FLEET_ROUND_LAUNCHES:
+        raise AssertionError(f"posit_round launched {launches['posit_round']}"
+                             f" times on the fleet, not the reference "
+                             f"design's {FLEET_ROUND_LAUNCHES}")
     for name in stream_kernels:
         report[name]["launches"] = launches[name]
     del engine
@@ -1507,17 +1745,19 @@ def main() -> int:
 
     phase("phase 4: times (median ms per call, CUDA events)")
     time_kernels(dev, shapes, report)
+    extra = time_round_host(dev, report)
     time_format_kernels(dev, report)
-    extra = time_serve_kernels(dev, report)
+    extra += time_serve_kernels(dev, report)
     for r in [*report.values(), *extra]:
         lib = ("-" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
+        plain = "-" if r["plain_ms"] is None else f"{r['plain_ms']:.4f}"
         unfused = (f", decode + torch.matmul {r['unfused_ms']:.4f} ms"
                    if "unfused_ms" in r else "")
         log(f"  {r['name']} {r['shape']}: {r['ms']:.4f} ms per call "
             f"({r['device_ms']:.4f} ms of it on the device), bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-            f"{r['plain_ms']:.4f} ms, library {lib}{unfused}")
+            f"{plain} ms, library {lib}{unfused}")
     torch.cuda.empty_cache()
 
     phase(f"phase 5: serve path, {SERVE_ARCH} at full width, "

@@ -8,32 +8,232 @@
 // the embedding rows and, on the plain route, the KV cache; encode writes
 // every K/V position into the posit cache and quantizes the weights once.
 //
-// Bound on the H100: memory.  Decode moves 2 + 2 bytes per element for
-// int16 -> bf16 (a few dozen integer operations each, far below the card's
-// integer rate), encode 4 + 2 for f32 -> int16.  One thread per element in
-// a grid-stride loop; neighbouring threads touch neighbouring elements, so
-// every load and store is coalesced.  A bf16 output is rounded from the
-// f32 value in the register (__float2bfloat16_rn), which equals the
-// reference's decode(f32).astype(bf16) in one pass.
+// Decode.  Bound on the H100: memory, 2 + 2 bytes per element for int16 ->
+// bf16, once the decode itself is cheap enough.  The arithmetic decoder
+// (posit_decode.cuh, ~30 integer operations a value) is not: at one value
+// per thread it ran at 46 % of the byte bound, held by the integer ALUs.
+// So a posit of n <= 16 bits is decoded by table lookup:
+//  * a table of the values of the 2^(n-1) non-negative patterns, in the
+//    output type, then one entry for NaR (a NaN with the sign bit set); a
+//    pattern p reads entry |p| (p sign-extended from n bits) and flips the
+//    sign bit if p < 0, which gives -value for a negative pattern (posit
+//    negation is two's complement) and a positive NaN for NaR.  posit16:
+//    64 KB in bf16, 128 KB in f32;
+//  * the table is built once per (card, n, es, output type) by
+//    posit_decode_table_kernel (the arithmetic decoder, so the values are
+//    the old kernel's bit for bit) and cached by the wrapper; each block
+//    copies it into shared memory with cp.async, while its first loads
+//    are already in flight;
+//  * every thread takes a vector of kPer = 16 / max(pattern, output size)
+//    elements: one load and one store, each at most 16 bytes and
+//    contiguous across the warp (8 int16 -> 8 bf16 is 16 bytes each way;
+//    4 int16 -> 4 f32 loads 8 bytes and stores 16).  Loading 16 bytes
+//    whatever the output leaves a wider output two 16-byte stores a
+//    thread at a 32-byte stride, which held int16 -> f32 and int8 -> bf16
+//    at 69 % of their bound on the H100.  Each thread keeps
+//    kUnroll vectors (32 bytes of patterns) in flight and loads the next
+//    kUnroll before it decodes the current ones; one block of 1024
+//    threads per SM (the table fills its shared memory) walks the tensor
+//    in a grid-stride loop;
+//  * the elements before the input's first vector boundary and after its
+//    last whole vector go one per thread through the same lookup; an
+//    output that cannot take whole stores at the input's vectors (a view
+//    at an odd offset) takes them one element at a time.
+// A posit wider than 16 bits (an int32 container) has no table and keeps
+// the arithmetic decoder, four values per 16-byte load.  A bf16 output of
+// the arithmetic decoder is rounded from the f32 value in the register
+// (__float2bfloat16_rn), which equals the reference's
+// decode(f32).astype(bf16); the table holds the same values.
+//
+// Encode: one thread per element in a grid-stride loop, coalesced.
 #include <type_traits>
 
 #include "posit_decode.cuh"
 #include "posit_math.cuh"
 
+namespace {
+constexpr int kDecodeThreads = 1024;
+
+// Elements per vector of the decode of S patterns into O values: the
+// load and the store each at most 16 bytes.
 template <typename S, typename O>
-__global__ void posit_decode_kernel(const S* __restrict__ bits,
-                                    O* __restrict__ out, long long n,
-                                    int nbits, int es) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const float v = posit::decode_f32(static_cast<int32_t>(bits[i]), nbits,
-                                      es);
-    if constexpr (sizeof(O) == 4) {
-      out[i] = v;
+__host__ __device__ constexpr int vec_elems() {
+  return 16 / (sizeof(S) > sizeof(O) ? sizeof(S) : sizeof(O));
+}
+
+// Vectors a thread keeps in flight: 32 bytes of patterns.
+template <typename S, typename O>
+__host__ __device__ constexpr int vec_unroll() {
+  return 32 / (vec_elems<S, O>() * sizeof(S));
+}
+
+// kBytes (4, 8 or 16) of patterns as 32-bit words, or stored from them.
+template <int kBytes>
+struct Words {
+  uint32_t w[kBytes / 4];
+  __device__ __forceinline__ void load(const void* p) {
+    if constexpr (kBytes == 16) {
+      const uint4 t = __ldg(static_cast<const uint4*>(p));
+      w[0] = t.x, w[1] = t.y, w[2] = t.z, w[3] = t.w;
+    } else if constexpr (kBytes == 8) {
+      const uint2 t = __ldg(static_cast<const uint2*>(p));
+      w[0] = t.x, w[1] = t.y;
     } else {
-      out[i] = __float2bfloat16_rn(v);
+      w[0] = __ldg(static_cast<const unsigned int*>(p));
+    }
+  }
+  __device__ __forceinline__ void store(void* p) const {
+    if constexpr (kBytes == 16)
+      *static_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    else if constexpr (kBytes == 8)
+      *static_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    else
+      *static_cast<uint32_t*>(p) = w[0];
+  }
+};
+
+template <typename O> struct OutBits;
+template <> struct OutBits<float> {
+  using T = uint32_t;
+  static constexpr uint32_t kSign = 0x80000000u;
+  static constexpr uint32_t kNegNan = 0xFFC00000u;
+  __device__ static uint32_t of(float v) { return __float_as_uint(v); }
+};
+template <> struct OutBits<__nv_bfloat16> {
+  using T = uint16_t;
+  static constexpr uint32_t kSign = 0x8000u;
+  static constexpr uint32_t kNegNan = 0xFFC0u;
+  __device__ static uint32_t of(float v) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// The n-bit pattern at bit `off` of `word`, sign-extended (off + n <= 32).
+__device__ __forceinline__ int32_t pattern_at(uint32_t word, int off, int n) {
+  return static_cast<int32_t>(word << (32 - off - n)) >> (32 - n);
+}
+
+// Output bits of the pattern at bit `off` of `word`: the table's entry for
+// |p| with the sign bit flipped for p < 0, or the arithmetic decoder.
+template <typename O, bool kTable>
+__device__ __forceinline__ uint32_t decode_bits(
+    uint32_t word, int off, const typename OutBits<O>::T* tab, int n,
+    int es) {
+  if constexpr (kTable) {
+    const int32_t p = pattern_at(word, off, n);
+    return static_cast<uint32_t>(tab[abs(p)]) ^
+           (static_cast<uint32_t>(p) & OutBits<O>::kSign);
+  } else {
+    return OutBits<O>::of(
+        posit::decode_f32(static_cast<int32_t>(word), n, es));
+  }
+}
+
+template <typename O>
+__device__ __forceinline__ void store_bits(O* dst, uint32_t b) {
+  *reinterpret_cast<typename OutBits<O>::T*>(dst) =
+      static_cast<typename OutBits<O>::T>(b);
+}
+
+// Decode one vector of kPer patterns and store its outputs at out.
+template <typename S, typename O, bool kTable, bool kVecStore>
+__device__ __forceinline__ void decode_vector(
+    const Words<vec_elems<S, O>() * sizeof(S)>& in, O* out,
+    const typename OutBits<O>::T* tab, int n, int es) {
+  constexpr int kPer = vec_elems<S, O>();
+  uint32_t v[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+    v[i] = decode_bits<O, kTable>(in.w[i * sizeof(S) / 4],
+                                  (i * sizeof(S)) % 4 * 8, tab, n, es);
+  if constexpr (kVecStore) {
+    Words<kPer * sizeof(O)> o;
+#pragma unroll
+    for (int j = 0; j < kPer * static_cast<int>(sizeof(O)) / 4; ++j)
+      o.w[j] = sizeof(O) == 4 ? v[j] : (v[2 * j] | (v[2 * j + 1] << 16));
+    o.store(out);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) store_bits(out + i, v[i]);
+  }
+}
+}  // namespace
+
+// Entries [0, 2^(n-1)) of the table: the values of the non-negative
+// patterns; entry 2^(n-1): NaR, a NaN with the sign bit set.
+template <typename O>
+__global__ void posit_decode_table_kernel(typename OutBits<O>::T* table,
+                                          int nbits, int es) {
+  const int half = 1 << (nbits - 1);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i <= half;
+       i += gridDim.x * blockDim.x) {
+    table[i] = static_cast<typename OutBits<O>::T>(
+        i == half ? OutBits<O>::kNegNan
+                  : OutBits<O>::of(posit::decode_f32(i, nbits, es)));
+  }
+}
+
+// The plan's head and tail one element per thread (of the first head +
+// tail threads), its n_vec vectors of kPer elements in a grid-stride loop.
+// With a table: `table` (16-byte chunks) is copied into dynamic shared
+// memory.
+template <typename S, typename O, bool kTable, bool kVecStore>
+__global__ void __launch_bounds__(kDecodeThreads) posit_decode_kernel(
+    const S* __restrict__ bits, O* __restrict__ out, long long head,
+    long long n_vec, long long tail, const uint4* __restrict__ table,
+    int table_chunks, int nbits, int es) {
+  using U = std::make_unsigned_t<S>;
+  constexpr int kPer = vec_elems<S, O>();
+  constexpr int kInBytes = kPer * sizeof(S);
+  constexpr int kUnroll = vec_unroll<S, O>();
+  using In = Words<kInBytes>;
+  extern __shared__ uint4 table_s[];
+  const auto* tab = reinterpret_cast<const typename OutBits<O>::T*>(table_s);
+  if constexpr (kTable) {
+    for (int c = threadIdx.x; c < table_chunks; c += blockDim.x)
+      cp_async16(table_s + c, table + c);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long t0 =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const S* vin = bits + head;
+  O* vout = out + head;
+  In cur[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u)
+    if (t0 + u * stride < n_vec) cur[u].load(vin + (t0 + u * stride) * kPer);
+  if constexpr (kTable) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+  }
+  if (t0 < head + tail) {
+    const long long i = t0 < head ? t0 : head + n_vec * kPer + (t0 - head);
+    store_bits(out + i, decode_bits<O, kTable>(
+                            static_cast<uint32_t>(static_cast<U>(bits[i])),
+                            0, tab, nbits, es));
+  }
+  for (long long v = t0; v < n_vec; v += kUnroll * stride) {
+    In nxt[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long j = v + (kUnroll + u) * stride;
+      if (j < n_vec) nxt[u].load(vin + j * kPer);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long j = v + u * stride;
+      if (j < n_vec)
+        decode_vector<S, O, kTable, kVecStore>(cur[u], vout + j * kPer, tab,
+                                               nbits, es);
+      cur[u] = nxt[u];
     }
   }
 }
@@ -56,21 +256,74 @@ __global__ void posit_encode_kernel(const float* __restrict__ x,
 namespace {
 constexpr int kThreads = 256;
 
-template <typename S, typename O>
-int launch_decode(const void* bits, void* out, long long n, int nbits,
-                  int es, void* stream) {
-  posit_decode_kernel<S, O><<<grid_for(n, kThreads), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const S*>(bits), static_cast<O*>(out), n, nbits, es);
+template <typename S, typename O, bool kTable, bool kVecStore>
+int launch_decode(const void* bits, void* out, const VecPlan& plan,
+                  const void* table, int table_bytes, int nbits, int es,
+                  cudaStream_t stream) {
+  constexpr auto kernel = posit_decode_kernel<S, O, kTable, kVecStore>;
+  const size_t smem = kTable ? static_cast<size_t>(table_bytes) : 0;
+  if constexpr (kTable) {
+    static size_t smem_set = 48 * 1024;   // the largest size allowed so far
+    if (smem > smem_set) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      smem_set = smem;
+    }
+  }
+  constexpr int kUnroll = vec_unroll<S, O>();
+  const long long work = (plan.n_vec + kUnroll - 1) / kUnroll;
+  const unsigned blocks = wave_blocks<kernel>(
+      kDecodeThreads, smem, work > plan.head + plan.tail ? work
+                                                         : plan.head +
+                                                               plan.tail);
+  kernel<<<blocks, kDecodeThreads, smem, stream>>>(
+      static_cast<const S*>(bits), static_cast<O*>(out), plan.head,
+      plan.n_vec, plan.tail, static_cast<const uint4*>(table),
+      table_bytes / 16, nbits, es);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename S, typename O>
+int launch_decode_to(const void* bits, void* out, long long n, int nbits,
+                     int es, const void* table, int table_bytes,
+                     cudaStream_t stream) {
+  constexpr int kPer = vec_elems<S, O>();
+  const VecPlan plan = vec_plan(bits, n, sizeof(S), kPer);
+  const bool vec_store = vec_store_ok(out, plan.head, sizeof(O), kPer);
+  if (nbits <= 16) {
+    if (table == nullptr || table_bytes % 16 != 0 ||
+        table_bytes < static_cast<int>(((1 << (nbits - 1)) + 1) * sizeof(O)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return vec_store ? launch_decode<S, O, true, true>(
+                           bits, out, plan, table, table_bytes, nbits, es,
+                           stream)
+                     : launch_decode<S, O, true, false>(
+                           bits, out, plan, table, table_bytes, nbits, es,
+                           stream);
+  }
+  if constexpr (sizeof(S) == 4) {
+    return vec_store ? launch_decode<S, O, false, true>(
+                           bits, out, plan, nullptr, 0, nbits, es, stream)
+                     : launch_decode<S, O, false, false>(
+                           bits, out, plan, nullptr, 0, nbits, es, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename S>
-int launch_decode_to(const void* bits, void* out, long long n, int out_bf16,
-                     int nbits, int es, void* stream) {
-  return out_bf16 ? launch_decode<S, __nv_bfloat16>(bits, out, n, nbits, es,
-                                                    stream)
-                  : launch_decode<S, float>(bits, out, n, nbits, es, stream);
+int launch_decode_s(const void* bits, void* out, long long n, int out_bf16,
+                    int nbits, int es, const void* table, int table_bytes,
+                    cudaStream_t stream) {
+  if (nbits < 2 || nbits > 8 * static_cast<int>(sizeof(S)) ||
+      reinterpret_cast<uintptr_t>(bits) % sizeof(S) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return out_bf16
+             ? launch_decode_to<S, __nv_bfloat16>(bits, out, n, nbits, es,
+                                                  table, table_bytes, stream)
+             : launch_decode_to<S, float>(bits, out, n, nbits, es, table,
+                                          table_bytes, stream);
 }
 
 template <typename S>
@@ -85,19 +338,41 @@ int launch_encode(const float* x, void* out, long long n, int nbits, int es,
 
 extern "C" {
 
-// bits_bytes: 1, 2 or 4 (int8/int16/int32 patterns); out_bf16: 0 -> f32.
+// The decode table of posit<nbits, es>, nbits <= 16, into `table`
+// (2^(nbits-1) + 1 entries of f32, or of bf16 when out_bf16).
+int posit_decode_table(void* table, int nbits, int es, int out_bf16,
+                       void* stream) {
+  if (nbits < 2 || nbits > 16) return static_cast<int>(cudaErrorInvalidValue);
+  const int entries = (1 << (nbits - 1)) + 1;
+  const unsigned blocks = static_cast<unsigned>((entries + 255) / 256);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (out_bf16)
+    posit_decode_table_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
+        static_cast<uint16_t*>(table), nbits, es);
+  else
+    posit_decode_table_kernel<float><<<blocks, 256, 0, st>>>(
+        static_cast<uint32_t*>(table), nbits, es);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bits_bytes: 1, 2 or 4 (int8/int16/int32 patterns, nbits at most the
+// container's); out_bf16: 0 -> f32.  nbits <= 16 needs `table`, the
+// posit_decode_table of (nbits, es, out_bf16), table_bytes a multiple of
+// 16 (else cudaErrorInvalidValue); wider posits take no table.
 int posit_decode(const void* bits, void* out, long long n, int bits_bytes,
-                 int out_bf16, int nbits, int es, void* stream) {
+                 int out_bf16, int nbits, int es, const void* table,
+                 int table_bytes, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (bits_bytes) {
     case 1:
-      return launch_decode_to<int8_t>(bits, out, n, out_bf16, nbits, es,
-                                      stream);
+      return launch_decode_s<int8_t>(bits, out, n, out_bf16, nbits, es,
+                                     table, table_bytes, st);
     case 2:
-      return launch_decode_to<int16_t>(bits, out, n, out_bf16, nbits, es,
-                                       stream);
+      return launch_decode_s<int16_t>(bits, out, n, out_bf16, nbits, es,
+                                      table, table_bytes, st);
     case 4:
-      return launch_decode_to<int32_t>(bits, out, n, out_bf16, nbits, es,
-                                       stream);
+      return launch_decode_s<int32_t>(bits, out, n, out_bf16, nbits, es,
+                                      table, table_bytes, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -43,7 +43,12 @@
 //    log2 G shuffles, not 5 G);
 //  * for p . v each lane owns EL outputs of each query row, and each warp
 //    keeps its own partial of acc over the rows it read; the warps' partials
-//    are added, in warp order, once per split.
+//    are added, in warp order, once per split;
+//  * a KV head with more query rows than a variant keeps in registers (Gq
+//    > 8, or > 4 at D > 128) is cut into groups of at most Gc rows, the
+//    grid's third dimension: attention rows are independent, so each group
+//    runs the same schedule on its slice of q and of the output, and reads
+//    the same K/V (from L2 after the first group).
 // The cache is read in place through its (B, S, KV) strides, never copied
 // or transposed; its rows must be contiguous and 16-byte aligned, as a
 // cache's always are.
@@ -170,7 +175,9 @@ __device__ __forceinline__ float decode_value(int32_t raw, int nbits, int es,
 }
 }  // namespace
 
-// Grid (B KV, splits), 256 threads.  GP: G rounded up to a power of two,
+// Grid (B KV, splits, groups), 256 threads.  Block (bh, s, grp) takes query
+// rows [grp Gc, grp Gc + G) of q's Gq rows per KV head, G = min(Gc, Gq - grp
+// Gc).  GP: Gc rounded up to a power of two,
 // at least 2 (query rows g >= G are zero and never stored); EL: elements
 // of a row per lane, D <= 32 EL; a warp takes one key row at a time.  The
 // split's valid rows stream through shared memory as tiles of T rows, for
@@ -179,14 +186,15 @@ __device__ __forceinline__ float decode_value(int32_t raw, int nbits, int es,
 // Dynamic shared memory: m, l, alpha (128 bytes), the posit8 table (256 x
 // 32 f32, int8 patterns only), the block's logits (bs x GP f32, a row's GP
 // together) and the ring; the end of the split reuses it for the warps'
-// partials (8 x G x D f32).
+// partials (8 x Gc x D f32).
 template <typename S, int EL, int GP>
 __global__ void __launch_bounds__(kThreads) posit_kv_attention_kernel(
     const float* __restrict__ q, const S* __restrict__ kb,
     const S* __restrict__ vb, const int* __restrict__ lengths,
-    float* __restrict__ out, float* __restrict__ part, int KV, int G, int D,
-    int Slen, long long sB, long long sS, long long sH, int bs, int n_blocks,
-    int blocks_per_split, int T, float scale, int nbits, int es) {
+    float* __restrict__ out, float* __restrict__ part, int KV, int Gq,
+    int Gc, int D, int Slen, long long sB, long long sS, long long sH,
+    int bs, int n_blocks, int blocks_per_split, int T, float scale,
+    int nbits, int es) {
   constexpr bool use_table = sizeof(S) == 1;
   extern __shared__ float smem[];
   float* m_s = smem;
@@ -200,6 +208,8 @@ __global__ void __launch_bounds__(kThreads) posit_kv_attention_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
   const int b = bh / KV, h = bh % KV;
+  const int g0 = blockIdx.z * Gc;              // the group's first row
+  const int G = min(Gc, Gq - g0);              // and its rows
   const int GD = G * D;
   int len = lengths[b];
   len = len < Slen ? len : Slen;
@@ -219,7 +229,8 @@ __global__ void __launch_bounds__(kThreads) posit_kv_attention_kernel(
     l_s[g] = 0.0f;
   }
   float qr[GP][EL], acc[GP][EL], pv[GP][EL];
-  const float* qh = q + static_cast<long long>(bh) * GD;
+  const long long row0 = (static_cast<long long>(bh) * Gq + g0) * D;
+  const float* qh = q + row0;
 #pragma unroll
   for (int g = 0; g < GP; ++g)
 #pragma unroll
@@ -381,50 +392,60 @@ __global__ void __launch_bounds__(kThreads) posit_kv_attention_kernel(
     for (int e = 0; e < EL; ++e)
       if (g < G && e < n_el) red[(warp * G + g) * D + d0 + e] = acc[g][e];
   __syncthreads();
-  const long long slot = static_cast<long long>(bh) * splits + split;
+  // partials of (bh, group, split) in slot (bh groups + group) splits +
+  // split, each Gc D acc floats (rows past G unused)
+  const long long slot =
+      (static_cast<long long>(bh) * gridDim.z + blockIdx.z) * splits + split;
+  const int GcD = Gc * D;
   for (int o = tid; o < GD; o += kThreads) {
     float s = red[o];
     for (int w = 1; w < kWarps; ++w) s = __fadd_rn(s, red[w * GD + o]);
     const int g = o / D;
     if (splits == 1) {
-      out[static_cast<long long>(bh) * GD + o] = s / fmaxf(l_s[g], 1e-30f);
+      out[row0 + o] = s / fmaxf(l_s[g], 1e-30f);
     } else {
-      part[slot * GD + o] = s;
+      part[slot * GcD + o] = s;
     }
   }
   if (splits > 1) {
-    // (m, l) of every split after all acc partials: (B KV splits GD) acc
-    // floats, then (B KV splits G) m, then as many l
-    float* ml = part + static_cast<long long>(gridDim.x) * splits * GD;
-    const long long n_slots = static_cast<long long>(gridDim.x) * splits;
+    // (m, l) of every slot after all acc partials: (n_slots Gc D) acc
+    // floats, then (n_slots Gc) m, then as many l
+    const long long n_slots =
+        static_cast<long long>(gridDim.x) * gridDim.z * splits;
+    float* ml = part + n_slots * GcD;
     for (int g = tid; g < G; g += kThreads) {
-      ml[slot * G + g] = m_s[g];
-      ml[n_slots * G + slot * G + g] = l_s[g];
+      ml[slot * Gc + g] = m_s[g];
+      ml[n_slots * Gc + slot * Gc + g] = l_s[g];
     }
   }
 }
 
-// out (bh, g, d) from the splits' partials, split 0 first, in that order.
+// Grid (B KV, groups): out rows of (bh, group) from the splits' partials,
+// split 0 first, in that order.
 __global__ void posit_kv_combine_kernel(const float* __restrict__ part,
-                                        float* __restrict__ out, int G,
-                                        int D, int splits) {
-  const int bh = blockIdx.x, GD = G * D;
-  const long long n_slots = static_cast<long long>(gridDim.x) * splits;
-  const float* acc = part + static_cast<long long>(bh) * splits * GD;
-  const float* m = part + n_slots * GD + static_cast<long long>(bh) * splits
-                   * G;
-  const float* l = m + n_slots * G;
+                                        float* __restrict__ out, int Gq,
+                                        int Gc, int D, int splits) {
+  const int bh = blockIdx.x, g0 = blockIdx.y * Gc;
+  const int G = min(Gc, Gq - g0), GD = G * D, GcD = Gc * D;
+  const long long n_slots =
+      static_cast<long long>(gridDim.x) * gridDim.y * splits;
+  const long long first =
+      (static_cast<long long>(bh) * gridDim.y + blockIdx.y) * splits;
+  const float* acc = part + first * GcD;
+  const float* m = part + n_slots * GcD + first * Gc;
+  const float* l = m + n_slots * Gc;
+  const long long row0 = (static_cast<long long>(bh) * Gq + g0) * D;
   for (int o = threadIdx.x; o < GD; o += blockDim.x) {
     const int g = o / D;
     float mx = kNegInf;
-    for (int s = 0; s < splits; ++s) mx = fmaxf(mx, m[s * G + g]);
+    for (int s = 0; s < splits; ++s) mx = fmaxf(mx, m[s * Gc + g]);
     float num = 0.0f, den = 0.0f;
     for (int s = 0; s < splits; ++s) {
-      const float w = expf(m[s * G + g] - mx);
-      num = __fadd_rn(num, __fmul_rn(w, acc[s * GD + o]));
-      den = __fadd_rn(den, __fmul_rn(w, l[s * G + g]));
+      const float w = expf(m[s * Gc + g] - mx);
+      num = __fadd_rn(num, __fmul_rn(w, acc[s * GcD + o]));
+      den = __fadd_rn(den, __fmul_rn(w, l[s * Gc + g]));
     }
-    out[static_cast<long long>(bh) * GD + o] = num / fmaxf(den, 1e-30f);
+    out[row0 + o] = num / fmaxf(den, 1e-30f);
   }
 }
 
@@ -436,7 +457,7 @@ struct Args {
   const int* lengths;
   float* out;
   float* part;
-  int B, KV, G, D, Slen;
+  int B, KV, Gq, Gc, groups, D, Slen;
   long long sB, sS, sH;
   int bs, n_blocks, blocks_per_split, splits, T;
   float scale;
@@ -450,7 +471,7 @@ int launch(const Args& a, void* stream) {
       (use_table ? 256 * kTableCopies : 0) * sizeof(float) +
       static_cast<size_t>(GP) * a.bs * sizeof(float) +
       static_cast<size_t>(kStages) * a.T * a.D * sizeof(S);
-  const size_t red = static_cast<size_t>(kWarps) * a.G * a.D * sizeof(float);
+  const size_t red = static_cast<size_t>(kWarps) * a.Gc * a.D * sizeof(float);
   const size_t smem = 32 * sizeof(float) + (work > red ? work : red);
   auto kernel = posit_kv_attention_kernel<S, EL, GP>;
   static size_t smem_set = 48 * 1024;   // the largest size allowed so far
@@ -462,14 +483,15 @@ int launch(const Args& a, void* stream) {
     smem_set = smem;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  kernel<<<dim3(a.B * a.KV, a.splits), kThreads, smem, st>>>(
+  kernel<<<dim3(a.B * a.KV, a.splits, a.groups), kThreads, smem, st>>>(
       a.q, static_cast<const S*>(a.kb), static_cast<const S*>(a.vb),
-      a.lengths, a.out, a.part, a.KV, a.G, a.D, a.Slen, a.sB, a.sS, a.sH,
+      a.lengths, a.out, a.part, a.KV, a.Gq, a.Gc, a.D, a.Slen, a.sB, a.sS,
+      a.sH,
       a.bs, a.n_blocks, a.blocks_per_split, a.T, a.scale, a.nbits, a.es);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
-  posit_kv_combine_kernel<<<a.B * a.KV, kThreads, 0, st>>>(
-      a.part, a.out, a.G, a.D, a.splits);
+  posit_kv_combine_kernel<<<dim3(a.B * a.KV, a.groups), kThreads, 0, st>>>(
+      a.part, a.out, a.Gq, a.Gc, a.D, a.splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -500,16 +522,17 @@ int launch_s(const Args& a, int el, int gp, void* stream) {
 
 extern "C" {
 
-// q, out: (B, KV, G, D) f32 contiguous; k/v bits: (B, S, KV, D) read
+// q, out: (B, KV, Gq, D) f32 contiguous; k/v bits: (B, S, KV, D) read
 // through the element strides (sB, sS, sH, sD), with sD == 1 and every row
 // 16-byte aligned (else cudaErrorInvalidValue); lengths: (B,) int32.
-// bits_bytes: 1, 2 or 4 (int8/int16/int32 patterns).  The plan (bs,
-// n_blocks, blocks_per_split, splits, el, gp) from
-// kernels/posit_kv_attention.py; part: scratch of B KV splits (G D + 2 G)
-// floats when splits > 1 (else unused).
+// bits_bytes: 1, 2 or 4 (int8/int16/int32 patterns).  The plan (Gc,
+// groups, bs, n_blocks, blocks_per_split, splits, el, gp) from
+// kernels/posit_kv_attention.py; part: scratch of B KV groups splits (Gc D
+// + 2 Gc) floats when splits > 1 (else unused).
 int posit_kv_attention(const float* q, const void* kb, const void* vb,
                        const int* lengths, float* out, float* part, int B,
-                       int KV, int G, int D, int Slen, long long sB,
+                       int KV, int Gq, int Gc, int groups, int D, int Slen,
+                       long long sB,
                        long long sS, long long sH, long long sD, int bs,
                        int n_blocks, int blocks_per_split, int splits,
                        int el, int gp, float scale, int bits_bytes,
@@ -520,7 +543,10 @@ int posit_kv_attention(const float* q, const void* kb, const void* vb,
       (sH * e) % 16 == 0 && (sB * e) % 16 == 0 &&
       reinterpret_cast<uintptr_t>(kb) % 16 == 0 &&
       reinterpret_cast<uintptr_t>(vb) % 16 == 0;
-  if (!aligned || G > gp || D > 32 * el || splits < 1 ||
+  if (!aligned || Gc > gp || Gc < 1 || groups < 1 ||
+      static_cast<long long>(groups) * Gc < Gq ||
+      static_cast<long long>(groups - 1) * Gc >= Gq || groups > 65535 ||
+      D > 32 * el || splits < 1 ||
       (bits_bytes == 1 && nbits > 8) ||
       blocks_per_split < 1 ||
       static_cast<long long>(splits) * blocks_per_split < n_blocks)
@@ -528,9 +554,9 @@ int posit_kv_attention(const float* q, const void* kb, const void* vb,
   // K/V rows per tile: about 16 KB of bits, a multiple of 8, at most bs
   int T = 16384 / (D * bits_bytes);
   T = (T < 8 ? 8 : (T > bs ? bs : T)) / 8 * 8;
-  const Args a{q,  kb, vb, lengths, out, part, B,  KV, G,
-               D,  Slen, sB, sS, sH, bs, n_blocks, blocks_per_split,
-               splits, T, scale, nbits, es};
+  const Args a{q,  kb,   vb,     lengths, out, part, B,  KV, Gq, Gc,
+               groups, D, Slen, sB, sS, sH, bs, n_blocks,
+               blocks_per_split, splits, T, scale, nbits, es};
   switch (bits_bytes) {
     case 1: return launch_s<int8_t>(a, el, gp, stream);
     case 2: return launch_s<int16_t>(a, el, gp, stream);

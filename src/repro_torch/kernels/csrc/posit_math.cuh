@@ -77,3 +77,57 @@ inline unsigned grid_for(long long n, int threads) {
   const long long blocks = (n + threads - 1) / threads;
   return static_cast<unsigned>(blocks < 132 * 16 ? blocks : 132 * 16);
 }
+
+// How a flat run of n elements of `size` bytes at `p` splits into vectors
+// of `per` elements (per * size bytes, a power of two up to 16): `head`
+// elements before the first vector boundary, then `n_vec` whole vectors,
+// then `tail` elements (the kernels take the head and the tail one
+// element per thread).  Mirrored for the tests by
+// kernels/posit_codec.py::vector_plan.
+struct VecPlan {
+  long long head, n_vec, tail;
+};
+
+inline VecPlan vec_plan(const void* p, long long n, int size, int per) {
+  const long long bytes = static_cast<long long>(per) * size;
+  const long long mis =
+      static_cast<long long>(reinterpret_cast<uintptr_t>(p) % bytes);
+  long long head = mis ? (bytes - mis) / size : 0;
+  head = head < n ? head : n;
+  const long long n_vec = (n - head) / per;
+  return {head, n_vec, n - head - n_vec * per};
+}
+
+// Whether an output of `out_size` bytes per element takes each vector's
+// `per` values in one aligned store at the plan's vectors.
+inline bool vec_store_ok(const void* out, long long head, int out_size,
+                         int per) {
+  return (reinterpret_cast<uintptr_t>(out) + head * out_size) %
+             (static_cast<long long>(per) * out_size) == 0;
+}
+
+// Blocks of `threads` threads (with `smem` bytes of dynamic shared memory)
+// for `work` units of one thread each: the work's blocks, at most one wave
+// of `kernel`'s resident blocks on every SM of the card (the first card
+// asked; the occupancy is asked once per kernel and shared-memory size).
+template <auto kernel>
+unsigned wave_blocks(int threads, size_t smem, long long work) {
+  static int sms = 0;
+  static int per_sm = 0;
+  static size_t asked_smem = ~size_t(0);
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (asked_smem != smem) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                  smem);
+    asked_smem = smem;
+  }
+  const long long wave = static_cast<long long>(sms) *
+                         (per_sm > 0 ? per_sm : 1);
+  long long blocks = (work + threads - 1) / threads;
+  blocks = blocks < 1 ? 1 : blocks;
+  return static_cast<unsigned>(blocks < wave ? blocks : wave);
+}

@@ -10,10 +10,17 @@ A wrapper given a CUDA tensor launches its kernel (``csrc/posit_codec.cu``)
 or raises; given a CPU tensor it runs the plain version beside it, which is
 ``repro_torch.core.posit``'s codec.  Each wrapper counts its launches in
 ``<wrapper>.launches``.  Both are bitwise equal to their plain versions.
+
+The decode kernel reads a posit of 16 bits or fewer through a table of the
+values of its non-negative patterns (``posit_decode_table_torch`` is the
+table's plain version), built on the card once per (card, format, output
+type) by a kernel of its own and kept in ``_tables``; that build is not a
+launch of the decode kernel and is not counted.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -25,15 +32,21 @@ from . import build
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _BITS_DTYPES = (torch.int8, torch.int16, torch.int32)
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+_NEG_NAN = {torch.float32: -0x00400000, torch.bfloat16: -0x40}  # 0xFFC0...
+_INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
 _lib = None
+# (card index, n, es, output dtype) -> the decode table on that card
+_tables: Dict[Tuple[int, int, int, torch.dtype], torch.Tensor] = {}
 
 
 def _kernels() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = build.load("posit_codec")
-        lib.posit_decode.argtypes = [_P, _P, _LL, _I, _I, _I, _I, _P]
+        lib.posit_decode.argtypes = [_P, _P, _LL, _I, _I, _I, _I, _P, _I, _P]
         lib.posit_decode.restype = _I
+        lib.posit_decode_table.argtypes = [_P, _I, _I, _I, _P]
+        lib.posit_decode_table.restype = _I
         lib.posit_encode.argtypes = [_P, _P, _LL, _I, _I, _I, _P]
         lib.posit_encode.restype = _I
         _lib = lib
@@ -55,6 +68,65 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
 
 
+def vector_plan(addr: int, n: int, size: int,
+                per: int) -> Tuple[int, int, int]:
+    """(head, n_vec, tail): how the decode and round kernels split ``n``
+    elements of ``size`` bytes at byte address ``addr`` into vectors of
+    ``per`` elements (``per * size`` bytes, a power of two up to 16) —
+    ``head`` elements up to the first vector boundary, ``n_vec`` whole
+    vectors, ``tail`` elements after them.  The decode takes ``per = 16 //
+    max(pattern size, output size)``, the round ``16 // size``.  The plain
+    mirror of ``csrc/posit_math.cuh::vec_plan``."""
+    nbytes = per * size
+    mis = addr % nbytes
+    head = min(n, (nbytes - mis) // size if mis else 0)
+    n_vec = (n - head) // per
+    return head, n_vec, n - head - n_vec * per
+
+
+def table_entries(fmt: PositFormat, out_dtype: torch.dtype) -> int:
+    """Entries of the decode table in memory: 2^(n-1) values and NaR's,
+    padded to whole 16 bytes (the kernel copies it in 16-byte chunks)."""
+    per = 16 // torch.empty((), dtype=out_dtype).element_size()
+    return -(-((1 << (fmt.n - 1)) + 1) // per) * per
+
+
+def posit_decode_table_torch(fmt: PositFormat,
+                             out_dtype: torch.dtype = torch.float32
+                             ) -> torch.Tensor:
+    """Plain version of the decode table kernel: entry i < 2^(n-1) holds
+    the value of pattern i in ``out_dtype``, entry 2^(n-1) NaR's, a NaN
+    with the sign bit set (0xFFC00000 in f32, 0xFFC0 in bf16), and zeros
+    pad it to ``table_entries``.  For n <= 16."""
+    if fmt.n > 16:
+        raise ValueError(f"{fmt.name}: no decode table above 16 bits")
+    half = 1 << (fmt.n - 1)
+    vals = decode(torch.arange(half, dtype=torch.int32), fmt).to(out_dtype)
+    idt = _INT_VIEW[out_dtype]
+    table = torch.zeros(table_entries(fmt, out_dtype), dtype=idt)
+    table[:half] = vals.view(idt)
+    table[half] = _NEG_NAN[out_dtype]
+    return table.view(out_dtype)
+
+
+def decode_table(fmt: PositFormat, out_dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """The decode kernel's table of ``fmt`` on ``device``, built there by
+    the table kernel at first use and cached."""
+    key = (device.index, fmt.n, fmt.es, out_dtype)
+    table = _tables.get(key)
+    if table is None:
+        table = torch.zeros(table_entries(fmt, out_dtype), dtype=out_dtype,
+                            device=device)
+        _raise_on(_kernels().posit_decode_table(
+            table.data_ptr(), fmt.n, fmt.es,
+            int(out_dtype == torch.bfloat16),
+            torch.cuda.current_stream(device).cuda_stream),
+            "posit_decode_table")
+        _tables[key] = table
+    return table
+
+
 def posit_decode_torch(bits: torch.Tensor, fmt: PositFormat,
                        out_dtype: torch.dtype = torch.float32
                        ) -> torch.Tensor:
@@ -71,12 +143,19 @@ def posit_decode(bits: torch.Tensor, fmt: PositFormat,
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"posit_decode: out_dtype {out_dtype} not in "
                         f"{_OUT_DTYPES}")
+    if fmt.n > 8 * bits.element_size():
+        raise ValueError(f"posit_decode: {fmt.name} patterns do not fit "
+                         f"{bits.dtype}")
     out = torch.empty(bits.shape, dtype=out_dtype, device=bits.device)
     if bits.numel():
+        table = (decode_table(fmt, out_dtype, bits.device) if fmt.n <= 16
+                 else None)
         _raise_on(_kernels().posit_decode(
             bits.data_ptr(), out.data_ptr(), bits.numel(),
             bits.element_size(), int(out_dtype == torch.bfloat16), fmt.n,
-            fmt.es, torch.cuda.current_stream(bits.device).cuda_stream),
+            fmt.es, None if table is None else table.data_ptr(),
+            0 if table is None else table.numel() * table.element_size(),
+            torch.cuda.current_stream(bits.device).cuda_stream),
             "posit_decode")
         posit_decode.launches += 1
     return out

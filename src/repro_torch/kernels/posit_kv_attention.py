@@ -10,13 +10,15 @@ the B × KV vmap of ``repro/kernels/ops.py::kv_attention``.
 A CUDA tensor launches ``csrc/posit_kv_attention.cu`` or raises; a CPU
 tensor takes the plain version.  The kernel splits the key blocks of
 ``block_plan`` across thread blocks (``kv_split_plan``): the grid is (B ×
-KV, splits), each block runs the online softmax over its contiguous range
-of key blocks, skipping the blocks and rows at or past the row's length,
-and a second kernel merges the splits' (m, l, acc) partials in a fixed
-order; a cache of one key block (the serve path's) takes one split and no
-second launch.  K/V rows must be contiguous and 16-byte aligned, with G
-at most 8 query rows per KV head and D at most 256 (128 for G > 4): the
-slices of q and of the output that a lane keeps in registers.
+KV, splits, query groups), each block runs the online softmax over its
+contiguous range of key blocks, skipping the blocks and rows at or past
+the row's length, and a second kernel merges the splits' (m, l, acc)
+partials in a fixed order; a cache of one key block (the serve path's)
+takes one split and no second launch.  A KV head's G query rows are cut
+into groups of at most 8 rows (4 at D > 128), the slices of q and of the
+output that a lane keeps in registers (``query_groups``), and the groups
+are the grid's third dimension: one launch takes any G.  K/V rows must be
+contiguous and 16-byte aligned and D at most 256.
 The plain version replays
 ``repro/kernels/ref.py::kv_attention_oracle`` op for op:
 the same ``block_plan``, the same masking order, the same carry updates.
@@ -30,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -51,7 +53,7 @@ def _kernels() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load("posit_kv_attention")
         lib.posit_kv_attention.argtypes = (
-            [_P] * 6 + [_I] * 5 + [_LL] * 4 + [_I] * 6 + [_F]
+            [_P] * 6 + [_I] * 7 + [_LL] * 4 + [_I] * 6 + [_F]
             + [_I] * 3 + [_P])
         lib.posit_kv_attention.restype = _I
         _lib = lib
@@ -103,7 +105,7 @@ def kv_split_plan(S: int, bs: int, n_heads: int,
     return best[1]
 
 
-def lane_plan(G: int, D: int) -> Tuple[int, int]:
+def lane_plan(G: int, D: int) -> Optional[Tuple[int, int]]:
     """(el, gp): elements of a K/V row per lane (a power of two, D <= 32
     el) and G rounded up to a power of two, at least 2; None where the
     kernel has no such variant (el > 8, gp > 8 or el × gp > 32: q's slice
@@ -111,6 +113,19 @@ def lane_plan(G: int, D: int) -> Tuple[int, int]:
     el = 1 << max(0, -(-D // 32) - 1).bit_length()
     gp = max(2, 1 << max(0, G - 1).bit_length())
     return (el, gp) if el <= 8 and gp <= 8 and el * gp <= 32 else None
+
+
+def query_groups(G: int, D: int) -> Optional[Tuple[int, int]]:
+    """(rows, groups): G query rows per KV head cut into ``groups`` groups
+    of ``rows`` (the last may be shorter, none is empty), the fewest groups
+    whose rows have a ``lane_plan`` variant, their rows as even as the
+    count allows; None where no group size has one (D > 256)."""
+    cap = next((g for g in (8, 4, 2) if lane_plan(g, D)), None)
+    if cap is None or G < 1:
+        return None
+    groups = -(-G // cap)
+    rows = -(-G // groups)
+    return rows, -(-G // rows)
 
 
 def _lengths(length, B: int, device) -> torch.Tensor:
@@ -180,11 +195,11 @@ def posit_kv_attention(q: torch.Tensor, k_bits: torch.Tensor,
         raise ValueError(f"posit_kv_attention: K/V {tuple(k_bits.shape)} "
                          f"must be (B, S, KV, D) = {(B, S, KV, D)} with "
                          f"one layout")
-    lanes = lane_plan(G, D)
-    if G * D > 1024 or lanes is None or B * KV >= 2 ** 31 or S >= 2 ** 31:
+    plan = query_groups(G, D)
+    if plan is None or B * KV >= 2 ** 31 or S >= 2 ** 31:
         raise ValueError(f"posit_kv_attention: G = {G}, D = {D}: the kernel "
-                         f"takes G <= 8 and D <= 256 (D <= 128 for G > 4), "
-                         f"and B*KV, S within int32")
+                         f"takes D <= 256, and B*KV, S within int32")
+    rows, groups = plan
     e = k_bits.element_size()
     if (k_bits.stride(-1) != 1
             or any(st * e % 16 for st in (D, *k_bits.stride()[:3]))
@@ -197,15 +212,16 @@ def posit_kv_attention(q: torch.Tensor, k_bits: torch.Tensor,
         return out.zero_()
     bs, n_blocks, per, splits = kv_split_plan(
         S, bs, B * KV, build.sm_count(q.device.index))
-    part = (torch.empty(B * KV * splits * (G * D + 2 * G),
+    part = (torch.empty(B * KV * groups * splits * (rows * D + 2 * rows),
                         dtype=torch.float32, device=q.device)
             if splits > 1 else None)
     lengths = _lengths(length, B, q.device)
     rc = _kernels().posit_kv_attention(
         q.data_ptr(), k_bits.data_ptr(), v_bits.data_ptr(),
         lengths.data_ptr(), out.data_ptr(),
-        part.data_ptr() if part is not None else None, B, KV, G, D, S,
-        *k_bits.stride(), bs, n_blocks, per, splits, *lanes, D ** -0.5,
+        part.data_ptr() if part is not None else None, B, KV, G, rows,
+        groups, D, S, *k_bits.stride(), bs, n_blocks, per, splits,
+        *lane_plan(rows, D), D ** -0.5,
         e, fmt.n, fmt.es, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -31,22 +31,27 @@ from . import build
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _lib = None
+# the round's entry points by dtype, bound once with the library
+_round_fns: Dict[torch.dtype, Callable[..., int]] = {}
 
 
 def _kernels() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = build.load("posit_round")
-        for sfx in _SUFFIX.values():
+        for dtype, sfx in _SUFFIX.items():
             f = getattr(lib, f"posit_round_{sfx}")
             f.argtypes = [_P, _P, _LL, _I, _I, _P]
             f.restype = _I
+            _round_fns[dtype] = f
             f = getattr(lib, f"posit_fma_round_{sfx}")
             f.argtypes = [_P] * 4 + [_LL, ctypes.POINTER(_LL), _I, _I, _P]
             f.restype = _I
             f = getattr(lib, f"posit_butterfly_{sfx}")
             f.argtypes = [_P] * 10 + [_LL, _LL, _LL, _I, _I, _P]
             f.restype = _I
+        lib.posit_empty_launch.argtypes = [_P]
+        lib.posit_empty_launch.restype = _I
         _lib = lib
     return _lib
 
@@ -79,16 +84,30 @@ def posit_round_torch(x: torch.Tensor, fmt: PositFormat) -> torch.Tensor:
 
 
 def posit_round(x: torch.Tensor, fmt: PositFormat) -> torch.Tensor:
-    """Nearest posit values of ``x`` (f32 or f64), same shape and dtype."""
-    if x.device.type == "cpu":
-        return posit_round_torch(x, fmt)
-    _check_cuda("posit_round", x)
+    """Nearest posit values of ``x`` (f32 or f64), same shape and dtype.
+
+    The most launched wrapper of the stream path (the 2-means rounds
+    scalars and short rows), so its host path is kept short: one test of
+    device, dtype and contiguity (``_check_cuda`` says which failed), the
+    entry point bound once, and the current stream read as a raw handle
+    (``torch.cuda.current_stream`` builds a ``Stream`` object each call)."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return posit_round_torch(x, fmt)
+        _check_cuda("posit_round", x)
+    if x.dtype not in _SUFFIX or not x.is_contiguous():
+        _check_cuda("posit_round", x)
     out = torch.empty_like(x)
-    if x.numel():
-        fn = getattr(_kernels(), f"posit_round_{_SUFFIX[x.dtype]}")
-        _raise_on(fn(x.data_ptr(), out.data_ptr(), x.numel(), fmt.n, fmt.es,
-                     torch.cuda.current_stream(x.device).cuda_stream),
-                  "posit_round")
+    n = x.numel()
+    if n:
+        fn = _round_fns.get(x.dtype)
+        if fn is None:
+            _kernels()
+            fn = _round_fns[x.dtype]
+        rc = fn(x.data_ptr(), out.data_ptr(), n, fmt.n, fmt.es,
+                torch._C._cuda_getCurrentRawStream(x.get_device()))
+        if rc:
+            _raise_on(rc, "posit_round")
         posit_round.launches += 1
     return out
 

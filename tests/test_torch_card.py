@@ -6,7 +6,11 @@ the card with ``python -m pytest -q -m cuda tests/test_torch_card.py``
 Tiers: the round, the multiply-add, the butterfly, the codec and the IEEE
 rounding bitwise, the rounded matmul within one ulp, the decode-fused
 matmul within 1e-5 of its largest output, the posit-KV attention within
-rtol = atol = 2e-5.
+rtol = atol = 2e-5.  The round and the decode are also held on ragged
+lengths and views at odd offsets (their 16-byte accesses' head and tail),
+every decode container and both output types, and the card-built decode
+tables against their plain version; the KV-attention at 48 query rows
+per KV head.
 """
 import numpy as np
 import pytest
@@ -45,6 +49,29 @@ def test_round_kernel_bitwise(name, dtype, dev):
                       .to(dtype))).to(dev)
     fmt = get_format(name)
     assert _equal_bits(posit_round(x, fmt), posit_round_torch(x, fmt))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_round_kernel_ragged_and_offset_views(dtype, dev):
+    """Lengths that leave a head and a tail, views at every element offset
+    within 16 bytes, and a 0-d tensor (the fleet's most launched shape),
+    bitwise equal to the plain version."""
+    fmt = get_format("posit10")
+    g = torch.Generator().manual_seed(15)
+    base = (torch.randn(70000, generator=g, dtype=dtype)
+            * torch.exp2(torch.randint(-40, 40, (70000,), generator=g)
+                         .to(dtype)))
+    per = 16 // base.element_size()
+    cases = [(0, n) for n in (1, per - 1, per + 1, 3 * per + 1, 65537)]
+    cases += [(off, 40003) for off in range(1, per)]
+    for off, n in cases:
+        x = base.to(dev)[off:off + n]
+        assert _equal_bits(posit_round(x, fmt).cpu(),
+                           posit_round_torch(base[off:off + n], fmt)), (off, n)
+    x = base[7].to(dev)
+    assert x.dim() == 0
+    assert _equal_bits(posit_round(x, fmt).cpu(), posit_round_torch(
+        base[7], fmt))
 
 
 def test_butterfly_kernel_bitwise(dev):
@@ -101,6 +128,54 @@ def test_decode_kernel_bitwise(n, out_dtype, dev):
     bits = torch.arange(1 << n).to(torch.int32).to(fmt.storage_dtype)
     assert _nan_aware_equal(posit_decode(bits.to(dev), fmt, out_dtype).cpu(),
                             posit_decode_torch(bits, fmt, out_dtype))
+
+
+def test_decode_table_built_on_the_card_equals_plain(dev):
+    from repro_torch.kernels.posit_codec import (decode_table,
+                                                 posit_decode_table_torch)
+    for name in ("posit8", "posit10", "posit12", "posit16", "posit16e3"):
+        fmt = get_format(name)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            idt = torch.int32 if out_dtype == torch.float32 else torch.int16
+            got = decode_table(fmt, out_dtype, dev).cpu()
+            assert torch.equal(got.view(idt), posit_decode_table_torch(
+                fmt, out_dtype).view(idt))
+
+
+# (format, container): the table route in every container, and the
+# arithmetic route of a posit wider than 16 bits
+_DECODE_CASES = [("posit8", torch.int8), ("posit16", torch.int16),
+                 ("posit8", torch.int16), ("posit16", torch.int32),
+                 ("posit24", torch.int32), ("posit32", torch.int32)]
+
+
+@pytest.mark.parametrize("name,container", _DECODE_CASES,
+                         ids=[f"{n}-{str(c)[6:]}" for n, c in _DECODE_CASES])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_kernel_ragged_and_offset_views(name, container, out_dtype,
+                                               dev):
+    """Lengths that leave a head and a tail, and views at every element
+    offset within 16 bytes (their outputs cannot take whole stores at the
+    input's vectors), bitwise equal to the plain version; the kernel is
+    launched for each."""
+    from repro_torch.kernels.posit_codec import (posit_decode,
+                                                 posit_decode_torch)
+    fmt = get_format(name)
+    g = torch.Generator().manual_seed(14)
+    lo, hi = -(1 << (fmt.n - 1)), 1 << (fmt.n - 1)
+    base = torch.randint(lo, hi, (70000,), generator=g).to(container)
+    base[:64] = torch.tensor([0, lo, hi - 1, 1, -1] * 12 + [0] * 4)
+    per = 16 // base.element_size()
+    cases = [(0, n) for n in (0, 1, per - 1, per + 1, 3 * per + 5, 65537)]
+    cases += [(off, 40003) for off in range(1, per)]
+    for off, n in cases:
+        bits = base.to(dev)[off:off + n]
+        before = posit_decode.launches
+        got = posit_decode(bits, fmt, out_dtype).cpu()
+        assert posit_decode.launches == before + (1 if n else 0)
+        assert _nan_aware_equal(got, posit_decode_torch(
+            base[off:off + n], fmt, out_dtype)), (off, n)
 
 
 @pytest.mark.parametrize("name", ["posit8", "posit12", "posit16",
@@ -163,6 +238,35 @@ def test_kv_attention_split_path(name, dev):
     p = posit_kv_attention_torch(q, kb, vb, lengths, fmt)
     assert torch.allclose(k, p, rtol=2e-5, atol=2e-5)
     assert torch.all(k[0] == 0)
+
+
+@pytest.mark.parametrize("name", ["posit8", "posit16"])
+@pytest.mark.parametrize("S", [96, 4096])
+def test_kv_attention_many_query_rows_per_kv_head(name, S, dev):
+    """granite-20b's shape: 48 query rows over one KV head, D = 128, run as
+    six groups of eight rows in one launch (and through the split path at
+    S = 4096), within 2e-5 of the plain version."""
+    from repro_torch.kernels.posit_codec import posit_encode_torch
+    from repro_torch.kernels.posit_kv_attention import (
+        posit_kv_attention, posit_kv_attention_torch, query_groups)
+    fmt = get_format(name)
+    B, KV, G, D = 4, 1, 48, 128
+    assert query_groups(G, D) == (8, 6)
+    g = torch.Generator().manual_seed(13)
+    q = torch.randn(B, KV, G, D, generator=g).to(dev)
+    kb, vb = (posit_encode_torch(torch.randn(B, S, KV, D, generator=g),
+                                 fmt).to(dev) for _ in range(2))
+    lengths = torch.tensor([1, S // 3, S - 1, S], dtype=torch.int32,
+                           device=dev)
+    before = posit_kv_attention.launches
+    k = posit_kv_attention(q, kb, vb, lengths, fmt)
+    assert posit_kv_attention.launches == before + 1
+    p = posit_kv_attention_torch(q, kb, vb, lengths, fmt)
+    assert torch.allclose(k, p, rtol=2e-5, atol=2e-5)
+    for G2 in (9, 12, 33):          # groups of unequal size
+        k = posit_kv_attention(q[:, :, :G2].contiguous(), kb, vb, lengths,
+                               fmt)
+        assert torch.allclose(k, p[:, :, :G2], rtol=2e-5, atol=2e-5)
 
 
 def test_kv_attention_never_reads_masked_positions(dev):

@@ -1,6 +1,13 @@
 """The launch plans of the two redesigned kernels, and the posit-KV
 attention's split-and-combine schedule in plain torch.
 
+``query_groups`` cuts a KV head's query rows into the groups that the
+KV-attention kernel takes in its grid's third dimension; every G from 1 to
+64 is covered once at the head dims the configs use, and the grouped
+schedule (``grouped_schedule``) is held against the plain version on the
+whole G and against the TPU kernel at G = 12 and G = 48 (granite-20b's 48
+query heads over one KV head).
+
 ``kv_split_plan`` (B6) and ``matmul_plan`` (B7) are pure Python, so their
 guarantees are held here: every split non-empty, every key block or K slab
 covered once, one split where the cache fits one key block, enough thread
@@ -23,8 +30,9 @@ from repro_torch.core.formats import PositFormat
 from repro_torch.core.posit import decode
 from repro_torch.kernels.posit_kv_attention import (BLOCKS_PER_SM, NEG_INF,
                                                     block_plan,
-                                                    kv_split_plan,
-                                                    posit_kv_attention_torch)
+                                                    kv_split_plan, lane_plan,
+                                                    posit_kv_attention_torch,
+                                                    query_groups)
 from repro_torch.kernels.posit_matmul import matmul_plan
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -154,6 +162,65 @@ def test_split_schedule_matches_plain_and_pallas_kernel(n, S, bs):
                                  sms=H100_SMS)
     assert splits > 1
     assert torch.all(got[0] == 0)
+    plain = posit_kv_attention_torch(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(lengths), fmt, bs=bs)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+    for b in range(B):
+        want = np.asarray(jkv(jnp.asarray(q[b, 0]), jnp.asarray(k[b, :, 0]),
+                              jnp.asarray(v[b, :, 0]),
+                              jnp.asarray(lengths[b], jnp.int32), jf, bs=bs,
+                              interpret=True))
+        np.testing.assert_allclose(got[b, 0].numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_query_groups_cover_every_row_once(D):
+    for G in range(1, 65):
+        rows, groups = query_groups(G, D)
+        spans = [range(g * rows, min((g + 1) * rows, G))
+                 for g in range(groups)]
+        assert all(len(r) > 0 for r in spans)
+        assert [i for r in spans for i in r] == list(range(G))
+        # the kernel runs every group as the variant of ``rows``
+        assert lane_plan(rows, D) is not None
+        assert rows * D <= 1024
+        if G <= rows:
+            assert groups == 1
+    assert query_groups(48, 128) == (8, 6)
+    assert query_groups(4, 300) is None
+
+
+def grouped_schedule(q, k_bits, v_bits, lengths, fmt, bs, sms):
+    """The kernel's grouped schedule in plain torch: each group of
+    ``query_groups`` rows runs ``split_schedule`` on its slice of q, into
+    its slice of the output."""
+    B, KV, G, D = q.shape
+    rows, groups = query_groups(G, D)
+    out = torch.zeros((B, KV, G, D))
+    for g in range(groups):
+        sl = slice(g * rows, min((g + 1) * rows, G))
+        out[:, :, sl], splits = split_schedule(
+            q[:, :, sl].contiguous(), k_bits, v_bits, lengths, fmt, bs, sms)
+    return out, groups, splits
+
+
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("G", [12, 48])
+def test_grouped_schedule_matches_plain_and_pallas_kernel(n, G):
+    B, KV, D, S, bs = 2, 1, 128, 200, 64
+    rng = np.random.default_rng(G + n)
+    jf = JPositFormat(n, 2)
+    q = rng.standard_normal((B, KV, G, D)).astype(np.float32)
+    kv = rng.standard_normal((2, B, S, KV, D)).astype(np.float32)
+    k = np.array(ref.encode_ref(jnp.asarray(kv[0]), jf))
+    v = np.array(ref.encode_ref(jnp.asarray(kv[1]), jf))
+    lengths = np.array([S // 2 + 3, S], np.int32)
+    fmt = PositFormat(n, 2)
+    got, groups, splits = grouped_schedule(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        lengths, fmt, bs, sms=H100_SMS)
+    assert groups > 1 and splits > 1
     plain = posit_kv_attention_torch(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         torch.from_numpy(lengths), fmt, bs=bs)
