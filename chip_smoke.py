@@ -10,19 +10,22 @@ Phases, each fatal on failure:
      decode-fused matmul and the KV-attention, and the HGMMA (``wgmma``)
      instructions in the matmul's SASS;
   2. each kernel against its plain torch version on the card: the round,
-     the butterfly, the codec's decode and encode bitwise, the rounded
-     matmul within one format ulp, the posit-KV attention within
-     rtol = atol = 2e-5; the round and the decode also on views at every
-     element offset within 16 bytes and ragged lengths (every decode
-     container, both output types), the decode tables built on the card
-     against their plain version, the KV-attention at 48 query rows per
-     KV head;
+     the butterfly, the codec's decode, encode and KV append bitwise (the
+     append in its three modes, positions it does not write untouched),
+     the rounded matmul within one format ulp and the same bits on a
+     second call (the main path's four shapes, ragged ones, f64), the
+     posit-KV attention within rtol = atol = 2e-5; the round and the
+     decode also on views at every element offset within 16 bytes and
+     ragged lengths (every decode container, both output types), the
+     decode tables built on the card against their plain version, the
+     KV-attention at 48 query rows per KV head;
   3. the stream path: a 64-patient fleet (32 cough patients at posit16
      with every fourth pinned to fp16, 32 ECG patients at posit10 with
      every fourth pinned to posit8)
      streamed in ragged chunks through ``StreamEngine``, with every window
      scored exactly once, every stream kernel's launch count above zero
-     (the round's equal to the reference design's 8221),
+     (the round's equal to the reference design's 8221, the rounded
+     matmul's to its 12 calls),
      and the outputs checked against the same windows run by the port on
      the CPU; then the same fleet once more under ``torch.profiler`` for
      the device's busy share and its top kernels;
@@ -34,15 +37,23 @@ Phases, each fatal on failure:
      (the codec's decode of both operands, then ``torch.matmul``), the
      decode at every serve weight shape, the round at the fleet's two
      shapes beside an empty kernel's bare launch, with the host time of
-     each step of its wrapper;
+     each step of its wrapper; the rounded matmul at its four main-path
+     shapes beside an empty kernel's device time; the KV append at the
+     serve shape (posit8 and posit16) beside the earlier route it replaced
+     (``earlier_kv_append``: casts, two encode launches and the eager
+     scatter), each with its device kernels per call;
   5. the serve path: qwen3-8b at full width (36 layers, random weights from
      a seeded generator on the card) behind ``ServingEngine`` with two
      lanes (posit16 weights; posit8 and posit16 KV), 12 requests, every
      request completed once, the codec and KV-attention kernels launched
-     (36 KV-attention launches per decode step), greedy tokens reproduced
-     by a second engine with eight of its steps under ``torch.profiler``
-     (the device's busy share, the weight decode's device time per
-     lane-step beside its byte bound), the KV-attention kernel
+     (36 KV-attention launches per decode step, one KV append per layer
+     and decode step or prefill, no encode launch while serving: the
+     weights are encoded at load), greedy tokens reproduced by a second
+     engine with eight of its steps under ``torch.profiler`` (the device's
+     busy share and kernels per lane-step, the weight decode's device time
+     per lane-step beside its byte bound), the serve run four times more
+     in turns with the KV write through the append kernel and through the
+     earlier route (ms per decode step of each), the KV-attention kernel
      held against its plain version on the live cache, and the reduced
      config's logits on the card against the same weights on the CPU;
   6. the format study: R-peak F1 over nine formats and cough AUC over
@@ -83,6 +94,7 @@ MAX_BATCH = 32
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 FLEET_ROUND_LAUNCHES = 8221    # the 64-patient fleet's posit_round launches
+FLEET_MATMUL_ROUND_CALLS = 12  # ... and its posit_matmul_round calls
 SERVE_ARCH = "qwen3-8b"
 SERVE_BATCH = 4                # slots per lane
 SERVE_MAX_PROMPT = 64
@@ -156,6 +168,34 @@ def device_ms(fn, kernels, reps: int = 50) -> float:
             if any(k in e.key for k in names)]
     us = sum(getattr(e, "self_device_time_total", 0) for e in hits)
     return us / reps / 1e3 if us else float("nan")
+
+
+def device_kernels(fn, reps: int = 50):
+    """(device ms per call, device kernels per call) of ``fn``: every
+    kernel, copy and fill that ``torch.profiler`` records on the card, in
+    a profile of 2 ``reps`` calls less one of ``reps`` calls, over
+    ``reps`` (the profiler may miss the first few events of a window; the
+    difference cancels that); NaN if it recorded none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def totals(calls):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count > 0]
+        return (sum(e.self_device_time_total for e in rows),
+                sum(e.count for e in rows))
+    fn()
+    torch.cuda.synchronize()
+    us1, n1 = totals(reps)
+    us2, n2 = totals(2 * reps)
+    if not n1 or not n2:
+        return float("nan"), float("nan")
+    return (us2 - us1) / reps / 1e3, (n2 - n1) / reps
 
 
 def ptxas_report(log_text: str):
@@ -251,7 +291,8 @@ def check_kernels(dev, report):
     from repro_torch.core.formats import get_format
     from repro_torch.data.biosignals import AUDIO_SR
     from repro_torch.kernels.posit_matmul import (posit_matmul_round,
-                                                  posit_matmul_round_torch)
+                                                  posit_matmul_round_torch,
+                                                  round_matmul_plan)
     from repro_torch.kernels.posit_round import (posit_butterfly,
                                                  posit_butterfly_torch,
                                                  posit_round,
@@ -338,9 +379,19 @@ def check_kernels(dev, report):
                                     .to(dev), fmt),
                   torch.ones(10, 1, device=dev)),
     }
+    # ragged M and N, K split or not, and the mel product in f64
+    cases = list(shapes.items()) + [
+        ("ragged", (psd[:37], mel[:, :19].contiguous())),
+        ("ragged", (posit_round_torch(torch.rand(3, 700, generator=gen)
+                                      .to(dev) * 1e3, fmt),
+                    posit_round_torch(torch.randn(700, 5, generator=gen)
+                                      .to(dev), fmt))),
+        ("mel f64", (psd.double(), mel.double()))]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     err = 0.0
-    for name, (a, b) in shapes.items():
+    for name, (a, b) in cases:
         k = posit_matmul_round(a, b, fmt)
+        again = posit_matmul_round(a, b, fmt)
         p = posit_matmul_round_torch(a, b, fmt)
         torch.cuda.synchronize()
         dist = ulp_distance(k, p, fmt)
@@ -348,10 +399,16 @@ def check_kernels(dev, report):
             raise AssertionError(f"posit_matmul_round {name}: "
                                  f"{int(dist.max())} ulp from the plain "
                                  f"version")
+        if not bits_equal(k, again):
+            raise AssertionError(f"posit_matmul_round {name}: two calls "
+                                 f"gave different bits")
         share = float((dist != 0).float().mean())
         err = max(err, max_abs_err(k, p))
-        log(f"  posit_matmul_round {name} {tuple(a.shape)}x{tuple(b.shape)}:"
-            f" within 1 ulp, {share:.4f} of outputs not bitwise equal")
+        (M, K), N = a.shape, b.shape[1]
+        log(f"  posit_matmul_round {name} {str(a.dtype)[6:]} ({M}, {K})x"
+            f"({K}, {N}), plan (tm, tn, splits, k per split) "
+            f"{round_matmul_plan(M, K, N, sms)}: within 1 ulp, {share:.4f} "
+            f"of outputs not bitwise equal, the same bits on a second call")
     report["posit_matmul_round"]["max_abs_err"] = err
     return shapes
 
@@ -466,6 +523,7 @@ def check_serve_kernels(dev, report):
                                      f"bitwise equal to its plain version")
             log(f"  posit_encode {fmt.name} {what} n={x.numel()}: bitwise")
     report["posit_encode"]["max_abs_err"] = 0.0
+    check_kv_append(dev, gen, report)
 
     # kv-attention: the serve shape and a long ragged cache
     err = 0.0
@@ -509,6 +567,80 @@ def check_serve_kernels(dev, report):
                 f"{kv_split_plan(S, 512, 4, sms)[3]}: within 2e-5, max abs "
                 f"err {max_abs_err(k, p):.3g}")
     report["posit_kv_attention"]["max_abs_err"] = err
+
+
+def kv_append_case(gen, fmt, in_dtype, B, cap, KV, D, s_new, dev):
+    """Two layers of random K/V storage (layer 1 is written: a view at an
+    offset) and new K/V rows of random magnitudes with specials."""
+    import torch
+    lo = -(1 << (fmt.n - 1))
+    store = [torch.randint(lo, -lo, (2, B, cap, KV, D), generator=gen)
+             .to(fmt.storage_dtype).to(dev) for _ in range(2)]
+    rows = []
+    for _ in range(2):
+        x = torch.randn(B, s_new, KV, D, generator=gen) * torch.exp2(
+            torch.randint(-30, 30, (B, s_new, KV, D), generator=gen).float())
+        x.view(-1)[:6] = torch.tensor([0.0, -0.0, float("inf"),
+                                       float("nan"), 1e-40, -3e38])
+        rows.append(x.to(in_dtype).to(dev))
+    return store, rows
+
+
+def check_kv_append(dev, gen, report):
+    """The KV append bitwise against its plain version at the serve shape
+    (B = 4, cap = 96, KV = 8, D = 128) in its three modes, posit8 and
+    posit16, bf16 and f32 rows, and at a row width of 12 (one value a
+    thread); one launch a call; the other layer and a dropped row
+    untouched."""
+    import torch
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels.posit_codec import (posit_kv_append,
+                                                 posit_kv_append_torch)
+    B, cap = 4, 96
+    modes = {"per-row decode": (1, 8, 128, [0, cap - 1, cap, 17]),
+             "per-row prefill": (37, 8, 128, [0, 0, 0, 0]),
+             "scalar length": (5, 8, 128, 40),
+             "scalar length, clamped": (9, 8, 128, cap - 3),
+             "per-row decode, row width 12": (1, 3, 4, [3, 0, cap, 95])}
+    n = 0
+    for name in ("posit8", "posit16"):
+        fmt = get_format(name)
+        for in_dtype in (torch.bfloat16, torch.float32):
+            for mode, (s_new, KV, D, length) in modes.items():
+                store, (k_new, v_new) = kv_append_case(
+                    gen, fmt, in_dtype, B, cap, KV, D, s_new, dev)
+                length = torch.tensor(length, dtype=torch.int32, device=dev)
+                orig = [t.clone() for t in store]
+                want = [t.clone() for t in store]
+                posit_kv_append_torch(k_new, v_new, want[0][1], want[1][1],
+                                      length, fmt)
+                before = posit_kv_append.launches
+                posit_kv_append(k_new, v_new, store[0][1], store[1][1],
+                                length, fmt)
+                torch.cuda.synchronize()
+                if posit_kv_append.launches != before + 1:
+                    raise AssertionError("posit_kv_append: not one launch "
+                                         "a call")
+                dropped = (length.tolist().index(cap)
+                           if length.dim() and cap in length.tolist()
+                           else None)
+                for got, w, o in zip(store, want, orig):
+                    if not torch.equal(got, w):
+                        raise AssertionError(
+                            f"posit_kv_append {name} {in_dtype} {mode}: not"
+                            f" bitwise equal to its plain version")
+                    if not torch.equal(got[0], o[0]) or (
+                            dropped is not None
+                            and not torch.equal(got[1][dropped],
+                                                o[1][dropped])):
+                        raise AssertionError(
+                            f"posit_kv_append {name} {in_dtype} {mode}: "
+                            f"wrote outside its positions")
+                n += 1
+    log(f"  posit_kv_append (4, 96, 8, 128) posit8/posit16, bf16/f32 rows, "
+        f"{', '.join(modes)}: {n} cases bitwise equal to the plain version, "
+        f"one launch each, unwritten positions untouched")
+    report["posit_kv_append"]["max_abs_err"] = 0.0
 
 
 def ieee_inputs():
@@ -953,7 +1085,8 @@ def first_greedy_token(engine, prompt, dev):
 
 def run_serve(dev, cfg, counters):
     """The serve main path at ``cfg``'s width: returns the completions,
-    the ledger summary, the wall time, the launch counts of the serve run
+    the ledger summary, the wall time, the launch counts of the load (the
+    engine's weight quantization and one prefill) and of the serve run,
     and one captured layer-0 KV-attention call (q, K/V bits, lengths)."""
     import gc
     import torch
@@ -963,10 +1096,13 @@ def run_serve(dev, cfg, counters):
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    for c in counters:
+        c.launches = 0
     engine = serve_engine(model, params, dev)
     reqs = serve_requests(cfg)
     reqs[2]["eos_id"] = first_greedy_token(engine, reqs[2]["prompt"], dev)
     torch.cuda.synchronize()
+    load = {c.__name__: c.launches for c in counters}
     log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"vocab {cfg.padded_vocab}; f32 init + posit16 quantization in "
         f"{time.perf_counter() - t0:.1f} s, "
@@ -1001,11 +1137,11 @@ def run_serve(dev, cfg, counters):
     del engine
     gc.collect()
     torch.cuda.empty_cache()
-    return (model, params, reqs, subs, comps, summary, wall, launches,
+    return (model, params, reqs, subs, comps, summary, wall, load, launches,
             captured.get("args"), peak)
 
 
-def check_serve(cfg, subs, comps, summary, launches):
+def check_serve(cfg, subs, comps, summary, load, launches):
     from repro_torch.serve import AGGRESSIVE_SERVE, PAPER_SERVE
     by_rid = {}
     for c in comps:
@@ -1038,10 +1174,23 @@ def check_serve(cfg, subs, comps, summary, launches):
         raise AssertionError(f"posit8 lane KV bytes {p8['kv_read_bytes']} "
                              f"are not half the posit16 lane's "
                              f"{p16['kv_read_bytes']}")
-    for name in ("posit_decode", "posit_encode", "posit_kv_attention"):
+    for name in ("posit_decode", "posit_kv_append", "posit_kv_attention"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the serve path")
+    if load["posit_encode"] <= 0:
+        raise AssertionError("posit_encode never launched at load")
+    if launches["posit_encode"] != 0:
+        raise AssertionError(f"posit_encode launched "
+                             f"{launches['posit_encode']} times while "
+                             f"serving: a KV write took the encode route")
     steps = p8["decode_steps"] + p16["decode_steps"]
+    prefills = p8["requests"] + p16["requests"]
+    if launches["posit_kv_append"] != cfg.n_layers * (steps + prefills):
+        raise AssertionError(f"posit_kv_append launched "
+                             f"{launches['posit_kv_append']} times for "
+                             f"{steps} decode steps and {prefills} prefills "
+                             f"of {cfg.n_layers} layers: not one launch a "
+                             f"layer-step")
     if launches["posit_kv_attention"] != cfg.n_layers * steps:
         raise AssertionError(f"posit_kv_attention launched "
                              f"{launches['posit_kv_attention']} times for "
@@ -1175,9 +1324,20 @@ def profile_serve(dev, model, params, reqs, want, card):
     report_busy(prof, wall, f"under the profiler, engine steps "
                 f"{PROFILE_STEPS[0]}-{PROFILE_STEPS[1] - 1} (both lanes "
                 f"decoding) ({card})", 8)
-    dec_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA
-                 and "posit_decode_kernel" in e.key)
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    if n_lane and on_card:
+        n_dev = sum(e.count for e in on_card)
+        n_app = sum(e.count for e in on_card
+                    if "posit_kv_append_kernel" in e.key)
+        log(f"  device kernels (kernels, copies, fills) per lane-step in "
+            f"that window: {n_dev / n_lane:.1f}, of them "
+            f"{n_app / n_lane:g} KV appends ({card})")
+    else:
+        log("  device kernels per lane-step: not measured (no lane-step or "
+            "no device event recorded)")
+    dec_us = sum(e.self_device_time_total for e in on_card
+                 if "posit_decode_kernel" in e.key)
     if n_lane and dec_us:
         log(f"  weight decode in that window: {decoded['calls']} launches, "
             f"{dec_us / 1e3:.3f} ms on the device over {n_lane} lane-steps,"
@@ -1188,6 +1348,42 @@ def profile_serve(dev, model, params, reqs, want, card):
     else:
         log("  weight decode in that window: not measured (no lane-step or "
             "no device time recorded)")
+
+
+def serve_kv_route_ab(dev, model, params, reqs, want, card):
+    """The serve run four times more, in turns, with the KV write through
+    the append kernel (``kernel``) and through the earlier route
+    (``earlier``, ``earlier_kv_append``): ms per decode step of each, on
+    one card in one call, and the greedy tokens of every run equal to the
+    first engine's."""
+    import torch
+    from repro_torch.models import attention as attn
+    real = attn.posit_kv_append
+    ms = {"kernel": [], "earlier": []}
+    try:
+        for route in ("kernel", "earlier", "earlier", "kernel"):
+            attn.posit_kv_append = (real if route == "kernel"
+                                    else earlier_kv_append)
+            engine = serve_engine(model, params, dev)
+            subs = submit_all(engine, reqs)
+            got = {c.rid: c.tokens for c in engine.run()}
+            torch.cuda.synchronize()
+            row = engine.ledger.summary()["fleet"]
+            ms[route].append(row["decode_tokens"] * row["us_per_token"]
+                             * 1e-3 / row["decode_steps"])
+            for rid, (r, _) in subs.items():
+                if r["temperature"] == 0 and not (
+                        got[rid].shape == want[rid].tokens.shape
+                        and (got[rid] == want[rid].tokens).all()):
+                    raise AssertionError(f"greedy tokens of request {rid} "
+                                         f"differ on the {route} KV route")
+            del engine
+    finally:
+        attn.posit_kv_append = real
+    log(f"  ms per decode step, KV write by the append kernel "
+        f"{ms['kernel']} against the earlier route {ms['earlier']} (runs "
+        f"in turns kernel, earlier, earlier, kernel; greedy tokens equal in "
+        f"all four) ({card})")
 
 
 # ---------------------------------------------------------------------------
@@ -1346,23 +1542,39 @@ def time_kernels(dev, shapes, report):
                      10 * n / F32_FLOPS_PER_S) * 1e3,
         bound_by="bytes", library_ms=None, shape=list(shape))
 
-    # matmul: the mel filterbank product of that batch
-    a, b = shapes["mel"]
-    (M, K), N = a.shape, b.shape[1]
-    nbytes = 4 * (M * K + K * N + M * N)
-    flops = 2 * M * K * N
-    by_bytes = nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
-    report["posit_matmul_round"].update(
-        ms=cuda_ms(lambda: posit_matmul_round(a, b, fmt)),
-        device_ms=device_ms(lambda: posit_matmul_round(a, b, fmt),
-                            "posit_matmul_round_kernel"),
-        plain_ms=cuda_ms(lambda: posit_matmul_round_torch(a, b, fmt)),
-        bound_ms=max(nbytes / HBM_BYTES_PER_S,
-                     flops / F32_FLOPS_PER_S) * 1e3,
-        bound_by="bytes" if by_bytes else "operations",
-        library_ms=cuda_ms(lambda: posit_round_torch(torch.matmul(a, b),
-                                                     fmt)),
-        shape=[M, K, N])
+    # matmul: the main path's four products of that batch (mel, DCT,
+    # centroid, votes), the split kernel and the combine kernel's device
+    # time together, beside an empty kernel's device time
+    from repro_torch.kernels import posit_round as pr
+    lib = pr._kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    floor_dev = device_ms(lambda: lib.posit_empty_launch(stream),
+                          "empty_kernel")
+    log(f"  an empty kernel's device time: {floor_dev:.4f} ms")
+    rows = []
+    for name, (a, b) in shapes.items():
+        (M, K), N = a.shape, b.shape[1]
+        nbytes = 4 * (M * K + K * N + M * N)
+        flops = 2 * M * K * N
+        by_bytes = nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
+        row = dict(
+            name="posit_matmul_round", shape=[M, K, N, name],
+            ms=cuda_ms(lambda: posit_matmul_round(a, b, fmt)),
+            device_ms=device_ms(lambda: posit_matmul_round(a, b, fmt),
+                                ("posit_matmul_round_kernel",
+                                 "posit_matmul_round_combine_kernel")),
+            plain_ms=cuda_ms(lambda: posit_matmul_round_torch(a, b, fmt)),
+            bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                         flops / F32_FLOPS_PER_S) * 1e3,
+            bound_by="bytes" if by_bytes else "operations",
+            library_ms=cuda_ms(lambda: posit_round_torch(torch.matmul(a, b),
+                                                         fmt)),
+            floor_device_ms=floor_dev)
+        if name == "mel":
+            report["posit_matmul_round"].update(row)
+        else:
+            rows.append(row)
+    return rows
 
 
 def time_format_kernels(dev, report):
@@ -1517,9 +1729,74 @@ def time_round_host(dev, report):
     return rows
 
 
+def earlier_kv_append(k_new, v_new, k_bits, v_bits, length, fmt):
+    """The KV write as it stood before the append kernel: for each of K
+    and V a cast to f32, one launch of the encode kernel and the eager
+    per-row scatter; timed beside the append kernel, in one run, on one
+    card."""
+    import torch
+    from repro_torch.kernels.posit_codec import kv_scatter, posit_encode
+    for new, bits in ((k_new, k_bits), (v_new, v_bits)):
+        kv_scatter(bits, posit_encode(new.to(torch.float32).contiguous(),
+                                      fmt), length)
+
+
+def time_kv_append(dev, gen, report):
+    """The KV append at one layer's decode write on the serve path (B = 4
+    slots, KV = 8, D = 128, bf16 rows, per-row lengths, a 96-position
+    cache), posit8 and posit16, beside the earlier route: per call (CUDA
+    events), the append kernel's device time (``device_ms``), and the
+    device time and kernels per call of every kernel of the call
+    (``device_kernels``).  Returns the rows logged beside the JSON
+    line's."""
+    import torch
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels.posit_codec import (posit_kv_append,
+                                                 posit_kv_append_torch)
+    rows = []
+    B, cap, KV, D = 4, 96, 8, 128
+    length = torch.tensor([10, 50, 94, 95], dtype=torch.int32, device=dev)
+    for name in ("posit8", "posit16"):
+        fmt = get_format(name)
+        k_bits, v_bits = (torch.zeros(B, cap, KV, D, dtype=fmt.storage_dtype,
+                                      device=dev) for _ in range(2))
+        k_new, v_new = (torch.randn(B, 1, KV, D, generator=gen)
+                        .to(torch.bfloat16).to(dev) for _ in range(2))
+        args = (k_new, v_new, k_bits, v_bits, length, fmt)
+        nbytes = (2 * k_new.numel() * (2 + k_bits.element_size())
+                  + length.numel() * 4)
+        all_ms, kernels = device_kernels(lambda: posit_kv_append(*args))
+        dev_ms = device_ms(lambda: posit_kv_append(*args),
+                           "posit_kv_append_kernel")
+        row = dict(
+            name="posit_kv_append", shape=[B, 1, KV, D, f"bf16->{name}"],
+            ms=cuda_ms(lambda: posit_kv_append(*args)), device_ms=dev_ms,
+            device_kernels=kernels,
+            plain_ms=cuda_ms(lambda: posit_kv_append_torch(*args)),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=None)
+        e_ms, e_kernels = device_kernels(lambda: earlier_kv_append(*args))
+        earlier = dict(
+            name="earlier_kv_append", shape=row["shape"],
+            ms=cuda_ms(lambda: earlier_kv_append(*args)), device_ms=e_ms,
+            device_kernels=e_kernels, plain_ms=None,
+            bound_ms=row["bound_ms"], bound_by="bytes", library_ms=None)
+        log(f"  KV write {name}: the append kernel {row['ms']:.4f} ms per "
+            f"call, {dev_ms:.4f} ms on the device ({all_ms:.4f} ms and "
+            f"{kernels:g} kernels of every device event per call); the "
+            f"earlier route {earlier['ms']:.4f} ms per call, {e_ms:.4f} ms "
+            f"and {e_kernels:g} kernels on the device")
+        if name == "posit8":            # the posit8 lane's cache
+            report["posit_kv_append"].update(row)
+        else:
+            rows.append(row)
+        rows.append(earlier)
+    return rows
+
+
 def time_serve_kernels(dev, report):
     """The serve kernels at serve-path shapes: decode and encode of one
-    (4096, 12288) FFN weight, the (4, 1, 8, 128) KV write, and the
+    (4096, 12288) FFN weight, the KV append of one layer, and the
     KV-attention at the lanes' cache (S = 96) and at S = 32768.  The
     KV-attention's library time is ``scaled_dot_product_attention`` on K/V
     already decoded to f32 (the decode not counted).  Returns the rows
@@ -1580,16 +1857,7 @@ def time_serve_kernels(dev, report):
                          samples=5),
         bound_ms=n * (4 + 2) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=None, shape=[4096, 12288, "f32->int16"])
-    kv = torch.randn(4, 1, 8, 128, generator=gen).to(dev)
-    p8 = get_format("posit8")
-    rows.append(dict(
-        name="posit_encode", shape=[4, 1, 8, 128, "f32->int8"],
-        ms=cuda_ms(lambda: posit_encode(kv, p8)),
-        device_ms=device_ms(lambda: posit_encode(kv, p8),
-                            "posit_encode_kernel"),
-        plain_ms=cuda_ms(lambda: posit_encode_torch(kv, p8)),
-        bound_ms=kv.numel() * 5 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None))
+    rows += time_kv_append(dev, gen, report)
 
     for name, S in (("posit8", 96), ("posit16", 96), ("posit8", 32768),
                     ("posit16", 32768)):
@@ -1642,7 +1910,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     from repro_torch.apps.cough import train_reference_forest
     from repro_torch.kernels import build
-    from repro_torch.kernels.posit_codec import posit_decode, posit_encode
+    from repro_torch.kernels.posit_codec import (posit_decode, posit_encode,
+                                                 posit_kv_append)
     from repro_torch.kernels.posit_kv_attention import (
         posit_kv_attention, posit_kv_attention_torch)
     from repro_torch.kernels.posit_matmul import (posit_matmul,
@@ -1704,6 +1973,10 @@ def main() -> int:
             name="posit_encode", route="cuda",
             source=f"{src}/csrc/posit_codec.cu",
             replaces="src/repro/kernels/posit_encode.py:25"),
+        "posit_kv_append": dict(
+            name="posit_kv_append", route="cuda",
+            source=f"{src}/csrc/posit_codec.cu",
+            replaces="src/repro/kernels/posit_encode.py:25"),
         "posit_kv_attention": dict(
             name="posit_kv_attention", route="cuda",
             source=f"{src}/csrc/posit_kv_attention.cu",
@@ -1718,8 +1991,8 @@ def main() -> int:
             replaces="src/repro/kernels/posit_matmul.py:57"),
     }
     counters = (posit_round, posit_butterfly, posit_matmul_round,
-                posit_decode, posit_encode, posit_kv_attention,
-                posit_fma_round, posit_matmul)
+                posit_decode, posit_encode, posit_kv_append,
+                posit_kv_attention, posit_fma_round, posit_matmul)
     stream_kernels = ("posit_round", "posit_butterfly", "posit_matmul_round")
     phase("phase 2: kernels against their plain versions")
     shapes = check_kernels(dev, report)
@@ -1738,14 +2011,18 @@ def main() -> int:
         raise AssertionError(f"posit_round launched {launches['posit_round']}"
                              f" times on the fleet, not the reference "
                              f"design's {FLEET_ROUND_LAUNCHES}")
+    if launches["posit_matmul_round"] != FLEET_MATMUL_ROUND_CALLS:
+        raise AssertionError(f"posit_matmul_round launched "
+                             f"{launches['posit_matmul_round']} times on the"
+                             f" fleet, not {FLEET_MATMUL_ROUND_CALLS}")
     for name in stream_kernels:
         report[name]["launches"] = launches[name]
     del engine
     profile_main_path(dev, forest, counters)
 
     phase("phase 4: times (median ms per call, CUDA events)")
-    time_kernels(dev, shapes, report)
-    extra = time_round_host(dev, report)
+    extra = time_kernels(dev, shapes, report)
+    extra += time_round_host(dev, report)
     time_format_kernels(dev, report)
     extra += time_serve_kernels(dev, report)
     for r in [*report.values(), *extra]:
@@ -1754,6 +2031,11 @@ def main() -> int:
         plain = "-" if r["plain_ms"] is None else f"{r['plain_ms']:.4f}"
         unfused = (f", decode + torch.matmul {r['unfused_ms']:.4f} ms"
                    if "unfused_ms" in r else "")
+        if "device_kernels" in r:
+            unfused += f", {r['device_kernels']:g} device kernels per call"
+        if "floor_device_ms" in r:
+            unfused += (f", an empty kernel {r['floor_device_ms']:.4f} ms on "
+                        f"the device")
         log(f"  {r['name']} {r['shape']}: {r['ms']:.4f} ms per call "
             f"({r['device_ms']:.4f} ms of it on the device), bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
@@ -1764,11 +2046,15 @@ def main() -> int:
           f"{2 * SERVE_PROMPTS} requests on two lanes")
     from repro_torch.configs import CONFIGS
     cfg = CONFIGS[SERVE_ARCH]
-    (model, params, reqs, subs, comps, summary, wall, launches, captured,
-     peak) = run_serve(dev, cfg, counters)
-    by_rid = check_serve(cfg, subs, comps, summary, launches)
-    for name in ("posit_decode", "posit_encode", "posit_kv_attention"):
+    (model, params, reqs, subs, comps, summary, wall, load, launches,
+     captured, peak) = run_serve(dev, cfg, counters)
+    by_rid = check_serve(cfg, subs, comps, summary, load, launches)
+    for name in ("posit_decode", "posit_kv_append", "posit_kv_attention"):
         report[name]["launches"] = launches[name]
+    # the weights are encoded at load, never while serving
+    report["posit_encode"]["launches"] = load["posit_encode"]
+    log(f"  launches at load (the weights' posit16 quantization, one "
+        f"prefill): {load}")
     log(f"  {len(comps)} requests completed once each in {wall:.3f} s "
         f"(host clock), peak {peak:.1f} GiB allocated; launches on the "
         f"serve path: {launches}")
@@ -1796,6 +2082,7 @@ def main() -> int:
         f"{tuple(kb.shape)} {fmt.name}, lengths {lengths.tolist()}: within "
         f"2e-5 of its plain version (max abs err {max_abs_err(k, p):.3g})")
     profile_serve(dev, model, params, reqs, by_rid, card)
+    serve_kv_route_ab(dev, model, params, reqs, by_rid, card)
     del model, params
     torch.cuda.empty_cache()
     serve_reduced_on_card_and_cpu(dev)
@@ -1813,8 +2100,9 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels_at_other_shapes": [
-        {k: r[k] for k in ("name", "shape", "ms", "device_ms", "plain_ms",
-                           "bound_ms", "bound_by", "library_ms")}
+        {k: r.get(k) for k in ("name", "shape", "ms", "device_ms",
+                               "device_kernels", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")}
         for r in extra]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

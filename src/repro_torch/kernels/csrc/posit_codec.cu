@@ -5,8 +5,9 @@
 // repro/kernels/posit_encode.py::posit_encode_2d (the TPU's tile-wise
 // codec around common.py's decode_tile / encode_tile).  On the serve path
 // decode turns every posit16 weight matrix into bf16 before its product,
-// the embedding rows and, on the plain route, the KV cache; encode writes
-// every K/V position into the posit cache and quantizes the weights once.
+// the embedding rows and, on the plain route, the KV cache; encode
+// quantizes the weights once, and its KV-append form (below) writes every
+// K/V position into the posit cache.
 //
 // Decode.  Bound on the H100: memory, 2 + 2 bytes per element for int16 ->
 // bf16, once the decode itself is cheap enough.  The arithmetic decoder
@@ -46,6 +47,28 @@
 // decode(f32).astype(bf16); the table holds the same values.
 //
 // Encode: one thread per element in a grid-stride loop, coalesced.
+//
+// KV append (posit_kv_append_kernel).  Replaces
+// repro/kernels/posit_encode.py::posit_encode_2d at the KV write (the
+// encode of KVCache.append) together with the per-row scatter around it:
+// one launch writes the posit bits of one layer's new K and V rows into
+// that layer's (B, cap, KV, D) storage, in place.  At the serve shape it
+// moves 24 KB (4 rows x 8 heads x 128 of bf16 in, posit8 out, K and V):
+// some 7 ns at 3.35 TB/s.  What bounds it is the launch, not bytes: a
+// cast, an encode launch and an eager scatter for each of K and V would be
+// ~22 device kernels a layer, each a host dispatch.  So the design is one
+// kernel for everything the write does:
+//  * the positions come from the cache's int32 lengths in device memory,
+//    so the host never waits on the card: per-row decode (S_new = 1) writes
+//    row b at length[b], and nothing where length[b] is outside [0, cap);
+//    per-row prefill writes the block at position 0; a scalar length
+//    writes the block at clamp(length, 0, cap - S_new);
+//  * each thread takes 8 consecutive values of one row of K or of V: one
+//    16-byte load of bf16 (two of f32), widened to f32 exactly, encoded by
+//    posit::encode_f32 (the same bits as posit_encode_kernel), one 8- or
+//    16-byte store of bits (two for an int32 container); a row width that
+//    is not a multiple of 8, or a pointer not aligned for those accesses,
+//    takes one value per thread instead.
 #include <type_traits>
 
 #include "posit_decode.cuh"
@@ -254,7 +277,167 @@ __global__ void posit_encode_kernel(const float* __restrict__ x,
 }
 
 namespace {
+// Where posit_kv_append writes (kernels/posit_codec.py::posit_kv_append).
+enum KvMode : int { kPerRowDecode = 0, kPerRowPrefill = 1, kScalarLength = 2 };
+
+// kPer values at `src` (f32, or bf16 held as uint16_t) as f32: 16-byte
+// loads when kPer > 1.  Widening bf16 is exact: its bits on top.
+template <typename I, int kPer>
+__device__ __forceinline__ void load_f32(const I* src, float (&v)[kPer]) {
+  if constexpr (kPer == 1) {
+    if constexpr (sizeof(I) == 4)
+      v[0] = __ldg(reinterpret_cast<const float*>(src));
+    else
+      v[0] = __uint_as_float(static_cast<uint32_t>(__ldg(src)) << 16);
+  } else {
+    constexpr int kChunks = kPer * static_cast<int>(sizeof(I)) / 16;
+    uint32_t w[4 * kChunks];
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const uint4 t = __ldg(reinterpret_cast<const uint4*>(src) + c);
+      w[4 * c] = t.x, w[4 * c + 1] = t.y, w[4 * c + 2] = t.z,
+             w[4 * c + 3] = t.w;
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      v[i] = __uint_as_float(sizeof(I) == 4 ? w[i]
+                             : i % 2       ? w[i / 2] & 0xFFFF0000u
+                                           : w[i / 2] << 16);
+  }
+}
+
+// kPer patterns (low bits of p) stored at dst in S's container: one 8-byte
+// store or 16-byte stores when kPer > 1.
+template <typename S, int kPer>
+__device__ __forceinline__ void store_patterns(S* dst,
+                                               const uint32_t (&p)[kPer]) {
+  using U = std::make_unsigned_t<S>;
+  if constexpr (kPer == 1) {
+    *dst = static_cast<S>(static_cast<U>(p[0]));
+  } else {
+    constexpr int kBytes = kPer * static_cast<int>(sizeof(S));  // 8-32
+    uint32_t w[kBytes / 4] = {};
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      w[i * sizeof(S) / 4] |= static_cast<uint32_t>(static_cast<U>(p[i]))
+                              << (i * sizeof(S) % 4 * 8);
+    if constexpr (kBytes == 8) {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kBytes / 16; ++c)
+        reinterpret_cast<uint4*>(dst)[c] =
+            make_uint4(w[4 * c], w[4 * c + 1], w[4 * c + 2], w[4 * c + 3]);
+    }
+  }
+}
+}  // namespace
+
+// k_new/v_new (batch, s_new, row) of I -> posit bits in k_bits/v_bits
+// (batch, cap, row) of S at the positions `mode` reads from `length`; one
+// thread per kPer consecutive values of one row of K or V.
+template <typename I, typename S, int kPer>
+__global__ void __launch_bounds__(256) posit_kv_append_kernel(
+    const I* __restrict__ k_new, const I* __restrict__ v_new,
+    S* __restrict__ k_bits, S* __restrict__ v_bits,
+    const int32_t* __restrict__ length, int batch, int s_new, int cap,
+    int row, int mode, int nbits, int es) {
+  const long long row_units = row / kPer;
+  const long long units = static_cast<long long>(batch) * s_new * row_units;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long u = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       u < 2 * units; u += stride) {
+    const bool is_v = u >= units;
+    const long long w = is_v ? u - units : u;
+    const long long r = w / row_units;          // source row b * s_new + s
+    const int j = static_cast<int>(w - r * row_units) * kPer;
+    const int b = static_cast<int>(r / s_new);
+    const int s = static_cast<int>(r - static_cast<long long>(b) * s_new);
+    int pos;
+    if (mode == kPerRowDecode) {
+      pos = __ldg(length + b);
+      if (pos < 0 || pos >= cap) continue;      // dropped, as the scatter
+    } else if (mode == kPerRowPrefill) {
+      pos = s;
+    } else {
+      pos = min(max(__ldg(length), 0), cap - s_new) + s;
+    }
+    float v[kPer];
+    load_f32<I, kPer>((is_v ? v_new : k_new) + r * row + j, v);
+    uint32_t p[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) p[i] = posit::encode_f32(v[i], nbits, es);
+    store_patterns<S, kPer>((is_v ? v_bits : k_bits) +
+                                (static_cast<long long>(b) * cap + pos) *
+                                    row +
+                                j,
+                            p);
+  }
+}
+
+namespace {
 constexpr int kThreads = 256;
+
+template <typename I, typename S, int kPer>
+int launch_kv_append(const void* k_new, const void* v_new, void* k_bits,
+                     void* v_bits, const int32_t* length, int batch,
+                     int s_new, int cap, int row, int mode, int nbits,
+                     int es, cudaStream_t stream) {
+  const long long threads =
+      2LL * batch * s_new * static_cast<long long>(row / kPer);
+  if (threads == 0) return 0;
+  posit_kv_append_kernel<I, S, kPer><<<grid_for(threads, kThreads), kThreads,
+                                       0, stream>>>(
+      static_cast<const I*>(k_new), static_cast<const I*>(v_new),
+      static_cast<S*>(k_bits), static_cast<S*>(v_bits), length, batch, s_new,
+      cap, row, mode, nbits, es);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Eight values a thread where the row width and every pointer allow its
+// 16-byte loads and 8- or 16-byte stores, else one.
+template <typename I, typename S>
+int launch_kv_append_to(const void* k_new, const void* v_new, void* k_bits,
+                        void* v_bits, const int32_t* length, int batch,
+                        int s_new, int cap, int row, int mode, int nbits,
+                        int es, cudaStream_t stream) {
+  const uintptr_t out_align = sizeof(S) == 1 ? 8 : 16;
+  const bool vec = row % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(k_new) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(v_new) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(k_bits) % out_align == 0 &&
+                   reinterpret_cast<uintptr_t>(v_bits) % out_align == 0;
+  return vec ? launch_kv_append<I, S, 8>(k_new, v_new, k_bits, v_bits,
+                                         length, batch, s_new, cap, row,
+                                         mode, nbits, es, stream)
+             : launch_kv_append<I, S, 1>(k_new, v_new, k_bits, v_bits,
+                                         length, batch, s_new, cap, row,
+                                         mode, nbits, es, stream);
+}
+
+template <typename I>
+int launch_kv_append_in(const void* k_new, const void* v_new, void* k_bits,
+                        void* v_bits, const int32_t* length, int bits_bytes,
+                        int batch, int s_new, int cap, int row, int mode,
+                        int nbits, int es, cudaStream_t stream) {
+  switch (bits_bytes) {
+    case 1:
+      return launch_kv_append_to<I, int8_t>(k_new, v_new, k_bits, v_bits,
+                                            length, batch, s_new, cap, row,
+                                            mode, nbits, es, stream);
+    case 2:
+      return launch_kv_append_to<I, int16_t>(k_new, v_new, k_bits, v_bits,
+                                             length, batch, s_new, cap, row,
+                                             mode, nbits, es, stream);
+    case 4:
+      return launch_kv_append_to<I, int32_t>(k_new, v_new, k_bits, v_bits,
+                                             length, batch, s_new, cap, row,
+                                             mode, nbits, es, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 template <typename S, typename O, bool kTable, bool kVecStore>
 int launch_decode(const void* bits, void* out, const VecPlan& plan,
@@ -391,6 +574,30 @@ int posit_encode(const float* x, void* out, long long n, int out_bytes,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// k_new, v_new: (batch, s_new, row) f32, or bf16 when in_bf16; k_bits,
+// v_bits: (batch, cap, row) posit bits in a container of bits_bytes (1, 2,
+// 4); length: int32, (batch,) for modes 0 (per-row decode, s_new = 1) and
+// 1 (per-row prefill, the block at 0), one value for mode 2 (the block at
+// clamp(length, 0, cap - s_new)).
+int posit_kv_append(const void* k_new, const void* v_new, void* k_bits,
+                    void* v_bits, const int32_t* length, int in_bf16,
+                    int bits_bytes, int batch, int s_new, int cap, int row,
+                    int mode, int nbits, int es, void* stream) {
+  if (mode < kPerRowDecode || mode > kScalarLength || batch < 0 ||
+      s_new < 1 || cap < 1 || row < 1 || nbits < 2 ||
+      nbits > 8 * bits_bytes || (mode == kPerRowDecode && s_new != 1) ||
+      (mode != kPerRowDecode && s_new > cap))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return in_bf16
+             ? launch_kv_append_in<uint16_t>(k_new, v_new, k_bits, v_bits,
+                                             length, bits_bytes, batch, s_new,
+                                             cap, row, mode, nbits, es, st)
+             : launch_kv_append_in<float>(k_new, v_new, k_bits, v_bits,
+                                          length, bits_bytes, batch, s_new,
+                                          cap, row, mode, nbits, es, st);
 }
 
 }  // extern "C"

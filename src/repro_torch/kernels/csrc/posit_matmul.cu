@@ -5,20 +5,32 @@
 //
 // Replaces repro/kernels/posit_matmul.py::posit_matmul_round_2d, the
 // Arith.matmul posit path (mel filterbank 2049->20, DCT 20->13, spectral
-// centroid 2049->1, forest votes T->1).  As on the TPU, K stays whole: one
-// thread block owns a 16x16 output tile and walks all of K in 32-deep
-// slabs staged through shared memory, so nothing is carried between blocks
-// and each output is rounded exactly once.
+// centroid 2049->1, forest votes T->1).  On the TPU K stays whole in one
+// grid step per output tile.
 //
-// Bound on the H100: memory.  The main-path shapes are tall and skinny
-// (N <= 20): 2 M K N flops against 4 (M K + K N + M N) bytes is about 8
-// flops per byte for the mel product and under one for the N = 1 rows,
-// below the ~20 f32 flops per byte where the card's 67 TFLOP/s of f32
-// would take over from its 3.35 TB/s.  A plain tiled loop in the input's
-// float type is the simple design; tensor cores (TF32 or wgmma) would
-// change the accumulation's precision, not its bound.
-// The order of the sum differs from torch.matmul's, so the result agrees
-// with round(a @ b) within one format ulp, not bit for bit.
+// Bound on the H100: neither bytes nor flops, but latency.  The main-path
+// shapes are tall and skinny: the mel product (64, 2049) . (2049, 20)
+// moves 0.69 MB (0.2 us at 3.35 TB/s) and does 5.2 MFLOP (0.08 us at 67
+// TFLOP/s of f32).  A block per output tile whose threads each walk all
+// of K, as on the TPU, would leave 8 blocks on 132 SMs with 2049
+// dependent adds a thread.  So this design spreads K instead
+// (kernels/posit_matmul.py::round_matmul_plan):
+//  * a block of 256 threads owns a kTM x kTN tile of 32 outputs (kTN = 8,
+//    4, 2 or 1 by N); thread t accumulates, in the input's float type, the
+//    products of every 256th k of its split, k = k0 + t, k0 + t + 256, ...
+//    (the A loads of a warp are one contiguous row segment);
+//  * the 32 partials of each warp are added across its lanes in a fixed
+//    tree of 31 shuffles, each step halving the live sums, so lane l ends
+//    with the warp's sum of output l of the tile; the eight warps' sums
+//    are then added in warp order, and the result rounded once;
+//  * where the output tiles alone are fewer than the SMs, K is split
+//    across blocks as well: each split writes its sums to scratch and
+//    posit_matmul_round_combine_kernel adds the splits in split order and
+//    rounds.  No atomics: the same bits every run.
+// Build with -fmad=false: each product rounds before it adds, as in the
+// plain version.  The order of the sum differs from torch.matmul's, so
+// the result agrees with round(a @ b) within one format ulp, not bit for
+// bit.
 //
 // 2. The decode-fused product C[M,N] f32 = decode(A_bits[M,K]) .
 //    decode(B_bits[K,N]), the posit bits staying in device memory.
@@ -68,40 +80,89 @@
 #include "posit_math.cuh"
 
 namespace {
-constexpr int kTM = 16, kTN = 16, kTK = 32;
-constexpr int kThreads = kTM * kTN;
+constexpr int kRoundThreads = 256;   // 8 warps; thread t takes every 256th k
+constexpr int kRoundAcc = 32;        // outputs of a tile, one a lane
+
+// The warp's sums of its lanes' 2 kO live partials: at step kO a lane
+// keeps the half of them that bit kO of its lane index selects and adds
+// the partner's (lane ^ kO) partials of that half; after kO = 16 ... 1,
+// acc[0] of lane l holds the warp's sum of output l.
+template <int kO, typename T>
+__device__ __forceinline__ void warp_fold(T (&acc)[kRoundAcc], int lane) {
+  const bool upper = lane & kO;
+#pragma unroll
+  for (int i = 0; i < kO; ++i) {
+    const T send = upper ? acc[i] : acc[i + kO];
+    const T keep = upper ? acc[i + kO] : acc[i];
+    acc[i] = keep + __shfl_xor_sync(0xFFFFFFFFu, send, kO);
+  }
+  if constexpr (kO > 1) warp_fold<kO / 2>(acc, lane);
+}
 }  // namespace
 
-template <typename T>
-__global__ void posit_matmul_round_kernel(const T* __restrict__ a,
-                                          const T* __restrict__ b,
-                                          T* __restrict__ c, int M, int K,
-                                          int N, int nbits, int es) {
-  __shared__ T a_s[kTM][kTK];
-  __shared__ T b_s[kTK][kTN + 1];
-  const int tx = threadIdx.x % kTN, ty = threadIdx.x / kTN;
-  const int row0 = blockIdx.x * kTM, col0 = blockIdx.y * kTN;
-  T acc = T(0);
-  for (int k0 = 0; k0 < K; k0 += kTK) {
-    for (int t = threadIdx.x; t < kTM * kTK; t += kThreads) {
-      const int r = row0 + t / kTK, k = k0 + t % kTK;
-      a_s[t / kTK][t % kTK] =
-          (r < M && k < K) ? a[static_cast<long long>(r) * K + k] : T(0);
-    }
-    for (int t = threadIdx.x; t < kTK * kTN; t += kThreads) {
-      const int k = k0 + t / kTN, col = col0 + t % kTN;
-      b_s[t / kTN][t % kTN] =
-          (k < K && col < N) ? b[static_cast<long long>(k) * N + col] : T(0);
-    }
-    __syncthreads();
-    const int kn = K - k0 < kTK ? K - k0 : kTK;
-    for (int k = 0; k < kn; ++k) acc = acc + a_s[ty][k] * b_s[k][tx];
-    __syncthreads();
+template <typename T, int kTN>
+__global__ void __launch_bounds__(kRoundThreads) posit_matmul_round_kernel(
+    const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
+    int M, int K, int N, int per, int splits, int nbits, int es) {
+  constexpr int kTM = kRoundAcc / kTN;
+  __shared__ T warp_sum[kRoundThreads / 32][32];
+  const int n_tiles = (N + kTN - 1) / kTN;
+  const int m0 = static_cast<int>(blockIdx.x / n_tiles) * kTM;
+  const int n0 = static_cast<int>(blockIdx.x % n_tiles) * kTN;
+  const int split = blockIdx.y;
+  const int k1 = static_cast<int>(
+      min(static_cast<long long>(K), static_cast<long long>(split + 1) * per));
+  T acc[kRoundAcc];
+#pragma unroll
+  for (int i = 0; i < kRoundAcc; ++i) acc[i] = T(0);
+#pragma unroll 2
+  for (int k = split * per + static_cast<int>(threadIdx.x); k < k1;
+       k += kRoundThreads) {
+    T av[kTM], bv[kTN];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+      av[i] = m0 + i < M ? __ldg(a + static_cast<long long>(m0 + i) * K + k)
+                         : T(0);
+#pragma unroll
+    for (int j = 0; j < kTN; ++j)
+      bv[j] = n0 + j < N ? __ldg(b + static_cast<long long>(k) * N + n0 + j)
+                         : T(0);
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j)
+        acc[i * kTN + j] = acc[i * kTN + j] + av[i] * bv[j];
   }
-  const int row = row0 + ty, col = col0 + tx;
-  if (row < M && col < N)
-    c[static_cast<long long>(row) * N + col] =
-        round_posit_math<T>(acc, nbits, es);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  warp_fold<16>(acc, lane);
+  warp_sum[warp][lane] = acc[0];
+  __syncthreads();
+  if (warp != 0) return;
+  T sum = warp_sum[0][lane];
+#pragma unroll
+  for (int w = 1; w < kRoundThreads / 32; ++w) sum = sum + warp_sum[w][lane];
+  const int m = m0 + lane / kTN, n = n0 + lane % kTN;
+  if (m >= M || n >= N) return;
+  const long long at = static_cast<long long>(m) * N + n;
+  if (splits == 1)
+    out[at] = round_posit_math<T>(sum, nbits, es);
+  else
+    out[static_cast<long long>(split) * M * N + at] = sum;
+}
+
+// C = round(the sum of the split-K sums, split 0 first, in that order).
+template <typename T>
+__global__ void posit_matmul_round_combine_kernel(const T* __restrict__ part,
+                                                  T* __restrict__ c,
+                                                  long long MN, int splits,
+                                                  int nbits, int es) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < MN; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    T s = part[i];
+    for (int k = 1; k < splits; ++k) s = s + part[k * MN + i];
+    c[i] = round_posit_math<T>(s, nbits, es);
+  }
 }
 
 namespace {
@@ -458,29 +519,75 @@ int launch_decode(const void* a, const void* b, float* c, float* part, int M,
   }
 }
 
-template <typename T>
-int launch(const T* a, const T* b, T* c, int M, int K, int N, int nbits,
-           int es, void* stream) {
-  const dim3 grid((M + kTM - 1) / kTM, (N + kTN - 1) / kTN);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  posit_matmul_round_kernel<T><<<grid, kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      a, b, c, M, K, N, nbits, es);
+template <typename T, int kTN>
+int launch_round_tn(const T* a, const T* b, T* c, T* part, int M, int K,
+                    int N, int splits, int per, int nbits, int es,
+                    cudaStream_t stream) {
+  constexpr int kTM = kRoundAcc / kTN;
+  const long long tiles = static_cast<long long>((M + kTM - 1) / kTM) *
+                          ((N + kTN - 1) / kTN);
+  if (tiles > 0x7FFFFFFFLL || splits > 65535)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  posit_matmul_round_kernel<T, kTN>
+      <<<dim3(static_cast<unsigned>(tiles), splits), kRoundThreads, 0,
+         stream>>>(a, b, splits > 1 ? part : c, M, K, N, per, splits, nbits,
+                   es);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long MN = static_cast<long long>(M) * N;
+  posit_matmul_round_combine_kernel<T>
+      <<<grid_for(MN, kRoundThreads), kRoundThreads, 0, stream>>>(
+          part, c, MN, splits, nbits, es);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const T* a, const T* b, T* c, T* part, int M, int K, int N,
+           int tn, int splits, int per, int nbits, int es, void* stream) {
+  if (splits < 1 || per < kRoundThreads || per % kRoundThreads != 0 ||
+      (splits > 1 && part == nullptr) ||
+      static_cast<long long>(splits - 1) * per >= (K > 0 ? K : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (tn) {
+    case 1:
+      return launch_round_tn<T, 1>(a, b, c, part, M, K, N, splits, per,
+                                   nbits, es, st);
+    case 2:
+      return launch_round_tn<T, 2>(a, b, c, part, M, K, N, splits, per,
+                                   nbits, es, st);
+    case 4:
+      return launch_round_tn<T, 4>(a, b, c, part, M, K, N, splits, per,
+                                   nbits, es, st);
+    case 8:
+      return launch_round_tn<T, 8>(a, b, c, part, M, K, N, splits, per,
+                                   nbits, es, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 }  // namespace
 
 extern "C" {
 
-int posit_matmul_round_f32(const float* a, const float* b, float* c, int M,
-                           int K, int N, int nbits, int es, void* stream) {
-  return launch<float>(a, b, c, M, K, N, nbits, es, stream);
+// The plan (tn in {1, 2, 4, 8}, splits, per: K elements a split, a
+// multiple of 256, no split empty) from
+// kernels/posit_matmul.py::round_matmul_plan; part: splits x M x N
+// scratch of the input's type when splits > 1 (else unused).
+int posit_matmul_round_f32(const float* a, const float* b, float* c,
+                           float* part, int M, int K, int N, int tn,
+                           int splits, int per, int nbits, int es,
+                           void* stream) {
+  return launch<float>(a, b, c, part, M, K, N, tn, splits, per, nbits, es,
+                       stream);
 }
 
 int posit_matmul_round_f64(const double* a, const double* b, double* c,
-                           int M, int K, int N, int nbits, int es,
+                           double* part, int M, int K, int N, int tn,
+                           int splits, int per, int nbits, int es,
                            void* stream) {
-  return launch<double>(a, b, c, M, K, N, nbits, es, stream);
+  return launch<double>(a, b, c, part, M, K, N, tn, splits, per, nbits, es,
+                        stream);
 }
 
 // a, b: posit bits in a signed container of `bits_size` bytes (1, 2, 4);

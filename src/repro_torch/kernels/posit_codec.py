@@ -5,6 +5,10 @@
 * ``posit_encode`` — f32 → posit bits in ``fmt.storage_dtype`` (RNE,
   saturating, NaN/±Inf → NaR, zero and subnormals → 0).  Replaces
   ``repro/kernels/posit_encode.py::posit_encode_2d``.
+* ``posit_kv_append`` — the encode at the KV write: one layer's new K and
+  V rows (bf16 or f32) encoded and written into that layer's posit cache
+  in place, at the positions ``KVCache.append`` writes, in one launch.
+  Replaces ``posit_encode_2d`` at the KV write, with the scatter around it.
 
 A wrapper given a CUDA tensor launches its kernel (``csrc/posit_codec.cu``)
 or raises; given a CPU tensor it runs the plain version beside it, which is
@@ -34,7 +38,11 @@ _BITS_DTYPES = (torch.int8, torch.int16, torch.int32)
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 _NEG_NAN = {torch.float32: -0x00400000, torch.bfloat16: -0x40}  # 0xFFC0...
 _INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+_IN_DTYPES = (torch.float32, torch.bfloat16)
+# posit_kv_append's modes (csrc/posit_codec.cu KvMode)
+KV_PER_ROW_DECODE, KV_PER_ROW_PREFILL, KV_SCALAR_LENGTH = 0, 1, 2
 _lib = None
+_kv_append_fn = None    # the append's entry point, bound once
 # (card index, n, es, output dtype) -> the decode table on that card
 _tables: Dict[Tuple[int, int, int, torch.dtype], torch.Tensor] = {}
 
@@ -49,6 +57,8 @@ def _kernels() -> ctypes.CDLL:
         lib.posit_decode_table.restype = _I
         lib.posit_encode.argtypes = [_P, _P, _LL, _I, _I, _I, _P]
         lib.posit_encode.restype = _I
+        lib.posit_kv_append.argtypes = [_P] * 5 + [_I] * 9 + [_P]
+        lib.posit_kv_append.restype = _I
         _lib = lib
     return _lib
 
@@ -189,3 +199,125 @@ def posit_encode(x: torch.Tensor, fmt: PositFormat) -> torch.Tensor:
 
 
 posit_encode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The KV write
+# ---------------------------------------------------------------------------
+
+def kv_mode(s_new: int, length: torch.Tensor) -> int:
+    """Where ``KVCache.append`` writes ``s_new`` positions: per-row
+    lengths with one position are a decode (row b at ``length[b]``), with
+    more a prefill (the block at 0); a scalar length writes the block at
+    ``clamp(length, 0, cap - s_new)``."""
+    if length.dim() == 1:
+        return KV_PER_ROW_DECODE if s_new == 1 else KV_PER_ROW_PREFILL
+    return KV_SCALAR_LENGTH
+
+
+def kv_scatter(raw: torch.Tensor, enc: torch.Tensor,
+               length: torch.Tensor) -> None:
+    """Write ``enc`` (B, S_new, KV, D) into the cache storage ``raw`` (B,
+    cap, KV, D) in place, at the positions of ``kv_mode``; a per-row decode
+    writes nothing in a row whose length is outside [0, cap), as the
+    reference's scatter drops it.  The bf16 cache's write, and the scatter
+    of ``posit_kv_append``'s plain version."""
+    s_new, cap = enc.shape[1], raw.shape[1]
+    mode = kv_mode(s_new, length)
+    if mode == KV_PER_ROW_DECODE:
+        rows = torch.arange(raw.shape[0], device=raw.device)
+        idx = torch.clamp(length, 0, cap - 1).long()
+        keep = (length >= 0) & (length < cap)
+        old = raw[rows, idx]
+        raw[rows, idx] = torch.where(keep[:, None, None], enc[:, 0], old)
+    elif s_new > cap:
+        raise ValueError(f"KVCache.append: {s_new} positions exceed the "
+                         f"capacity {cap}")
+    elif mode == KV_PER_ROW_PREFILL:
+        raw[:, :s_new] = enc
+    else:
+        start = torch.clamp(length, 0, cap - s_new)
+        idx = start + torch.arange(s_new, device=raw.device)
+        raw.index_copy_(1, idx.long(), enc)
+
+
+def posit_kv_append_torch(k_new: torch.Tensor, v_new: torch.Tensor,
+                          k_bits: torch.Tensor, v_bits: torch.Tensor,
+                          length: torch.Tensor, fmt: PositFormat) -> None:
+    """Plain version of the KV-append kernel: encode each of K and V, then
+    scatter it (``kv_scatter``)."""
+    for new, bits in ((k_new, k_bits), (v_new, v_bits)):
+        kv_scatter(bits, posit_encode_torch(new, fmt), length)
+
+
+def _check_kv_append(k_new, v_new, k_bits, v_bits, length,
+                     fmt: PositFormat) -> None:
+    ts = (k_new, v_new, k_bits, v_bits, length)
+    if not all(t.is_cuda and t.device == k_new.device for t in ts):
+        raise ValueError(f"posit_kv_append: tensors must all be on one card "
+                         f"(got {[str(t.device) for t in ts]})")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("posit_kv_append: tensors must be contiguous")
+    if k_new.dtype not in _IN_DTYPES or v_new.dtype != k_new.dtype:
+        raise TypeError(f"posit_kv_append: K/V rows of one dtype in "
+                        f"{_IN_DTYPES}, got {k_new.dtype} and {v_new.dtype}")
+    if k_bits.dtype != fmt.storage_dtype or v_bits.dtype != k_bits.dtype:
+        raise TypeError(f"posit_kv_append: {fmt.name} bits are "
+                        f"{fmt.storage_dtype}, got {k_bits.dtype} and "
+                        f"{v_bits.dtype}")
+    if length.dtype != torch.int32:
+        raise TypeError(f"posit_kv_append: int32 lengths, got "
+                        f"{length.dtype}")
+    if k_new.dim() != 4 or v_new.shape != k_new.shape or \
+            v_bits.shape != k_bits.shape or k_bits.dim() != 4 or \
+            k_bits.shape[0] != k_new.shape[0] or \
+            k_bits.shape[2:] != k_new.shape[2:]:
+        raise ValueError(f"posit_kv_append: K/V rows (B, S_new, KV, D) and "
+                         f"storage (B, cap, KV, D), got {tuple(k_new.shape)}"
+                         f", {tuple(v_new.shape)}, {tuple(k_bits.shape)}, "
+                         f"{tuple(v_bits.shape)}")
+    if length.shape not in ((), (k_new.shape[0],)):
+        raise ValueError(f"posit_kv_append: a scalar or ({k_new.shape[0]},)"
+                         f" length, got {tuple(length.shape)}")
+    if k_bits.numel() >= 2 ** 31 or k_new.numel() >= 2 ** 31:
+        raise ValueError("posit_kv_append: sizes must fit int32")
+    if fmt.max_scale > 126:
+        raise ValueError(f"posit_kv_append: {fmt.name} has minpos/maxpos "
+                         f"outside the normal f32 range")
+
+
+def posit_kv_append(k_new: torch.Tensor, v_new: torch.Tensor,
+                    k_bits: torch.Tensor, v_bits: torch.Tensor,
+                    length: torch.Tensor, fmt: PositFormat) -> None:
+    """Encode one layer's new K and V rows, ``k_new``/``v_new`` (B, S_new,
+    KV, D) bf16 or f32, into its posit storage ``k_bits``/``v_bits`` (B,
+    cap, KV, D) in ``fmt.storage_dtype``, in place, at the positions that
+    ``kv_mode`` reads from the int32 ``length`` (a scalar or (B,)), which
+    stays on the card.  One launch for K, V and every row."""
+    if k_new.device.type == "cpu":
+        return posit_kv_append_torch(k_new, v_new, k_bits, v_bits, length,
+                                     fmt)
+    _check_kv_append(k_new, v_new, k_bits, v_bits, length, fmt)
+    B, s_new = k_new.shape[:2]
+    cap = k_bits.shape[1]
+    mode = kv_mode(s_new, length)
+    if mode != KV_PER_ROW_DECODE and s_new > cap:
+        raise ValueError(f"KVCache.append: {s_new} positions exceed the "
+                         f"capacity {cap}")
+    if not k_new.numel():
+        return
+    global _kv_append_fn
+    if _kv_append_fn is None:
+        _kv_append_fn = _kernels().posit_kv_append
+    rc = _kv_append_fn(
+        k_new.data_ptr(), v_new.data_ptr(), k_bits.data_ptr(),
+        v_bits.data_ptr(), length.data_ptr(),
+        int(k_new.dtype == torch.bfloat16), k_bits.element_size(), B, s_new,
+        cap, k_new.shape[2] * k_new.shape[3], mode, fmt.n, fmt.es,
+        torch._C._cuda_getCurrentRawStream(k_new.get_device()))
+    if rc:
+        _raise_on(rc, "posit_kv_append")
+    posit_kv_append.launches += 1
+
+
+posit_kv_append.launches = 0

@@ -3,9 +3,15 @@
 * ``posit_matmul_round`` — ``round_fmt(A[M,K] · B[K,N])`` on float values:
   one wide accumulation per output, rounded once — the ``Arith.matmul``
   posit path.  Replaces ``repro/kernels/posit_matmul.py::
-  posit_matmul_round_2d``.  The kernel keeps K whole inside one thread
-  block per output tile and accumulates in the input's float type (f32 on
-  the main path); its summation order differs from ``torch.matmul``'s, so
+  posit_matmul_round_2d``.  The kernel's schedule, chosen by
+  ``round_matmul_plan``: a block of 256 threads owns a tm × tn output tile
+  (32 outputs) over one split of K; each thread accumulates every 256th k
+  of the split in the input's float type (f32 on the main path), the
+  threads' partials are added in a fixed tree (warp shuffles, then the
+  eight warps in order) and the sum is rounded once; where the output
+  tiles alone would leave SMs idle, K is split across blocks and a second
+  kernel adds the splits in order and rounds.  No atomics: the same bits
+  every run.  Its summation order differs from ``torch.matmul``'s, so
   kernel and plain version agree within one format ulp, not bitwise.
 * ``posit_matmul`` — ``decode(A_bits[M,K]) · decode(B_bits[K,N])`` → f32,
   the posit bits read straight from device memory, each tile decoded to
@@ -54,12 +60,39 @@ def _kernels() -> ctypes.CDLL:
         lib = build.load("posit_matmul")
         for sfx in _SUFFIX.values():
             f = getattr(lib, f"posit_matmul_round_{sfx}")
-            f.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+            f.argtypes = [_P] * 4 + [_I] * 8 + [_P]
             f.restype = _I
         lib.posit_matmul_decode.argtypes = [_P] * 4 + [_I] * 11 + [_P]
         lib.posit_matmul_decode.restype = _I
         _lib = lib
     return _lib
+
+
+# The rounded matmul's geometry (csrc/posit_matmul.cu).
+ROUND_THREADS = 256     # threads of a block, each on every 256th k
+ROUND_ACC = 32          # outputs of a block's tile: tm x tn
+_MAX_ROUND_SPLITS = 16
+
+
+@functools.lru_cache(maxsize=1024)
+def round_matmul_plan(M: int, K: int, N: int,
+                      sms: int) -> Tuple[int, int, int, int]:
+    """(tm, tn, splits, per) for the rounded matmul.
+
+    A block owns a tm × tn output tile (tn = 8, 4, 2 or 1, the least power
+    of two at or above N up to 8, and tm = 32 / tn, so each of a warp's
+    lanes ends up with one output of the tile) over K's split ``s``,
+    [s·per, min((s + 1)·per, K)); ``per`` is a multiple of the block's 256
+    threads.  K is split across blocks until the tiles times the splits
+    fill ``sms``, at most 16 ways and never below one k per
+    thread, so no split is empty."""
+    tn = min(8, 1 << max(0, N - 1).bit_length())
+    tm = ROUND_ACC // tn
+    tiles = -(-M // tm) * -(-N // tn)
+    chunks = max(1, -(-K // ROUND_THREADS))
+    want = max(1, min(-(-sms // max(1, tiles)), chunks, _MAX_ROUND_SPLITS))
+    per = -(-chunks // want) * ROUND_THREADS
+    return tm, tn, max(1, -(-K // per)), per
 
 
 def posit_matmul_round_torch(a: torch.Tensor, b: torch.Tensor,
@@ -89,9 +122,17 @@ def posit_matmul_round(a: torch.Tensor, b: torch.Tensor,
         raise ValueError("posit_matmul_round: dims must fit int32")
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if M and N:
+        tm, tn, splits, per = round_matmul_plan(
+            M, K, N, build.sm_count(a.device.index))
+        if -(-M // tm) * -(-N // tn) >= 2 ** 31:
+            raise ValueError("posit_matmul_round: too many output tiles")
+        part = (torch.empty((splits, M, N), dtype=a.dtype, device=a.device)
+                if splits > 1 else None)
         fn = getattr(_kernels(), f"posit_matmul_round_{_SUFFIX[a.dtype]}")
-        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N,
-                fmt.n, fmt.es, torch.cuda.current_stream(a.device).cuda_stream)
+        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                part.data_ptr() if part is not None else None, M, K, N, tn,
+                splits, per, fmt.n, fmt.es,
+                torch.cuda.current_stream(a.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(
                 f"posit_matmul_round: CUDA launch failed (cudaError {rc})")

@@ -1,6 +1,6 @@
 """Model factory: ``ModelConfig.family`` → model class.  This slice of the
 port has the ``dense`` family; the others wait for later slices
-(ROADMAP.md, queue A item 7)."""
+(ROADMAP.md, queue A item A3)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -17,5 +17,5 @@ def build_model(cfg: ModelConfig, policy: QuantPolicy = QuantPolicy(),
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet (ROADMAP.md, "
-            f"queue A item 7)")
+            f"queue A item A3)")
     return FAMILIES[cfg.family](cfg, policy, device=device)

@@ -2,12 +2,12 @@
 the posit-quantized KV cache for decode — the counterpart of
 ``repro.models.attention`` for serving.
 
-Every posit write of the cache goes through the encode kernel's wrapper
-and every posit read through the decode kernel's; a decode step whose
-cache qualifies (``_fused_kv_eligible``) attends through the posit-KV
-attention kernel, which decodes K/V inside the kernel.  The blocked
-``chunked_attention`` and the training path wait for the training slice
-(ROADMAP.md, queue A item 8).
+Every posit write of the cache goes through the KV-append kernel's
+wrapper (one launch a layer for K, V and every row) and every posit read
+through the decode kernel's; a decode step whose cache qualifies
+(``_fused_kv_eligible``) attends through the posit-KV attention kernel,
+which decodes K/V inside the kernel.  The blocked ``chunked_attention``
+waits for queue A item A3 and the training path for A5 (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -19,15 +19,15 @@ import torch
 from repro_torch.core.arith import get_fused_kernels, get_round_backend
 from repro_torch.core.formats import PositFormat
 from repro_torch.core.quant import PositTensor
-from repro_torch.kernels.posit_codec import posit_encode
+from repro_torch.kernels.posit_codec import kv_scatter, posit_kv_append
 from repro_torch.kernels.posit_kv_attention import posit_kv_attention
 
 from .common import dense, make_dense, param, rms_norm, rope, softcap, wval
 
 NEG_INF = -1e30
 BIG_WINDOW = 1 << 30
-_DEFERRED = ("waits for the training slice of the port (ROADMAP.md, queue A "
-             "item 8)")
+_DEFERRED = ("waits for a later slice of the port (ROADMAP.md, queue A item "
+             "A3)")
 
 
 # ---------------------------------------------------------------------------
@@ -55,10 +55,6 @@ class KVCache:
     @staticmethod
     def _raw(store) -> torch.Tensor:
         return store.bits if isinstance(store, PositTensor) else store
-
-    @property
-    def per_row(self) -> bool:
-        return self.length.dim() == 1
 
     # -- storage ---------------------------------------------------------
     @staticmethod
@@ -90,15 +86,6 @@ class KVCache:
     def read(self, dtype: torch.dtype = torch.bfloat16):
         return wval(self.k, dtype), wval(self.v, dtype)
 
-    @staticmethod
-    def _encode(store, new: torch.Tensor) -> torch.Tensor:
-        if isinstance(store, PositTensor):
-            scaled = new.to(torch.float32)
-            if store.scale is not None:
-                scaled = scaled / store.scale
-            return posit_encode(scaled.contiguous(), store.fmt)
-        return new.to(store.dtype)
-
     def append(self, k_new: torch.Tensor, v_new: torch.Tensor,
                new_length=None) -> "KVCache":
         """Write S_new positions into the cache (in place).
@@ -110,33 +97,21 @@ class KVCache:
         whose length is past the capacity writes nothing, as the
         reference's scatter drops it), or a fresh block at position 0 when
         S_new > 1 (right-padded prefill: ``new_length`` then carries the
-        true per-row prompt lengths).
+        true per-row prompt lengths).  A posit cache is written by
+        ``posit_kv_append``; it carries no scale (``create``), and a scaled
+        store is refused.
         """
         S_new = k_new.shape[1]
-
-        def wr(store, new):
-            enc = self._encode(store, new)
-            raw = self._raw(store)
-            cap = raw.shape[1]
-            if self.per_row and S_new == 1:
-                rows = torch.arange(raw.shape[0], device=raw.device)
-                idx = torch.clamp(self.length, 0, cap - 1).long()
-                keep = ((self.length >= 0) & (self.length < cap))
-                old = raw[rows, idx]
-                raw[rows, idx] = torch.where(keep[:, None, None], enc[:, 0],
-                                             old)
-            elif S_new > cap:
-                raise ValueError(f"KVCache.append: {S_new} positions exceed "
-                                 f"the capacity {cap}")
-            elif self.per_row:
-                raw[:, :S_new] = enc
-            else:
-                start = torch.clamp(self.length, 0, cap - S_new)
-                idx = start + torch.arange(S_new, device=raw.device)
-                raw.index_copy_(1, idx.long(), enc)
-
-        wr(self.k, k_new)
-        wr(self.v, v_new)
+        if isinstance(self.k, PositTensor):
+            if self.k.scale is not None or self.v.scale is not None:
+                raise ValueError("KVCache.append: a posit KV cache carries "
+                                 "no scale")
+            posit_kv_append(k_new.contiguous(), v_new.contiguous(),
+                            self.k.bits, self.v.bits, self.length,
+                            self.k.fmt)
+        else:
+            kv_scatter(self.k, k_new.to(self.k.dtype), self.length)
+            kv_scatter(self.v, v_new.to(self.v.dtype), self.length)
         if new_length is None:
             new_length = self.length + S_new
         else:

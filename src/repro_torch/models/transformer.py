@@ -4,9 +4,9 @@ serving half of ``repro.models.transformer.DecoderLM``.
 A Python loop over the layers replaces ``lax.scan``; the per-layer
 parameters are views of the layer-stacked tree.  gemma2's logit softcaps,
 alternating local windows, sandwich norms and embedding scale are ported,
-so the plain decode route is exercised too.  Training (``loss``) and the
-``moe``/``vlm`` families wait for later slices (ROADMAP.md, queue A items
-7-8).
+so the plain decode route is exercised too.  The ``moe``/``vlm`` families
+and training (``loss``) wait for later slices (ROADMAP.md, queue A items
+A3 and A5).
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ class DecoderLM:
         if cfg.family != "dense" or cfg.n_experts:
             raise NotImplementedError(
                 f"DecoderLM family {cfg.family!r} is not ported yet "
-                f"(ROADMAP.md, queue A item 7)")
+                f"(ROADMAP.md, queue A item A3)")
         self.cfg = cfg
         self.policy = policy
         self.device = resolve_device(device)
@@ -129,7 +129,7 @@ class DecoderLM:
     def loss(self, params, batch):
         raise NotImplementedError("DecoderLM.loss waits for the training "
                                   "slice of the port (ROADMAP.md, queue A "
-                                  "item 8)")
+                                  "item A5)")
 
     # -- serving ----------------------------------------------------------
     def init_cache(self, batch: int, capacity: int, per_row: bool = False):

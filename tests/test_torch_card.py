@@ -10,7 +10,9 @@ rtol = atol = 2e-5.  The round and the decode are also held on ragged
 lengths and views at odd offsets (their 16-byte accesses' head and tail),
 every decode container and both output types, and the card-built decode
 tables against their plain version; the KV-attention at 48 query rows
-per KV head.
+per KV head; the KV append bitwise in its three modes, positions it does
+not write untouched; the rounded matmul at the main path's shapes, ragged
+ones and in f64, the same bits on every call.
 """
 import numpy as np
 import pytest
@@ -98,6 +100,115 @@ def test_matmul_kernel_within_one_ulp(dev):
         q = encode(v, fmt).to(torch.int64) & fmt.mask
         return (q ^ fmt.nar_pattern) - fmt.nar_pattern
     assert int((ordered(k) - ordered(p)).abs().max()) <= 1
+
+
+def _ordered(v, fmt):
+    q = encode(v, fmt).to(torch.int64) & fmt.mask
+    return (q ^ fmt.nar_pattern) - fmt.nar_pattern
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M,K,N", [(64, 2049, 20), (64, 2049, 1),
+                                   (64, 20, 13), (32, 10, 1), (37, 2049, 19),
+                                   (3, 700, 5), (130, 4100, 9)])
+def test_matmul_kernel_shapes_within_one_ulp_and_repeatable(M, K, N, dtype,
+                                                            dev):
+    """The main path's shapes (mel, centroid, DCT, votes), ragged M and N,
+    K split across blocks or not, f32 and f64: within one posit16 ulp of
+    the plain version, and two calls give the same bits."""
+    from repro_torch.kernels.posit_matmul import round_matmul_plan
+    fmt = get_format("posit16")
+    g = torch.Generator().manual_seed(M + K + N)
+    a = posit_round_torch((torch.rand(M, K, generator=g, dtype=dtype)
+                           * 2.0 ** 20), fmt).to(dev)
+    b = posit_round_torch(torch.randn(K, N, generator=g, dtype=dtype),
+                          fmt).to(dev)
+    before = posit_matmul_round.launches
+    k = posit_matmul_round(a, b, fmt)
+    again = posit_matmul_round(a, b, fmt)
+    assert posit_matmul_round.launches == before + 2
+    p = posit_matmul_round_torch(a, b, fmt)
+    assert int((_ordered(k, fmt) - _ordered(p, fmt)).abs().max()) <= 1
+    assert _equal_bits(k, again)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if (M, K, N) == (64, 2049, 20):
+        assert round_matmul_plan(M, K, N, sms)[2] > 1
+
+
+def _kv_append_case(g, name, in_dtype, B, cap, KV, D, s_new, dev):
+    """Random storage (two layers stacked, layer 1 used: a view at an
+    offset) and new rows with specials."""
+    fmt = get_format(name)
+    lo = -(1 << (fmt.n - 1))
+    store = [torch.randint(lo, -lo, (2, B, cap, KV, D), generator=g)
+             .to(fmt.storage_dtype).to(dev) for _ in range(2)]
+    rows = []
+    for _ in range(2):
+        x = torch.randn(B, s_new, KV, D, generator=g) * torch.exp2(
+            torch.randint(-30, 30, (B, s_new, KV, D), generator=g).float())
+        x.view(-1)[:5] = torch.tensor([0.0, float("inf"), float("nan"),
+                                       1e-40, -3e38])
+        rows.append(x.to(in_dtype).to(dev))
+    return fmt, store, rows
+
+
+@pytest.mark.parametrize("name", ["posit8", "posit16"])
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode", ["decode", "prefill", "scalar",
+                                  "scalar_clamped", "odd_row"])
+def test_kv_append_kernel_bitwise(name, in_dtype, mode, dev):
+    """One launch writes K and V; the storage equals the plain version's
+    everywhere, so the positions it does not write stay untouched: a
+    per-row decode (rows at 0, cap - 1, cap: dropped, 17), a ragged per-row
+    prefill, scalar appends in the middle and clamped near cap, and a row
+    width of 12 (one value a thread)."""
+    from repro_torch.kernels.posit_codec import (posit_kv_append,
+                                                 posit_kv_append_torch)
+    B, cap, KV, D = 4, 96, 8, 128
+    s_new, length = {
+        "decode": (1, [0, cap - 1, cap, 17]),
+        "prefill": (37, [0, 0, 0, 0]),
+        "scalar": (5, 40),
+        "scalar_clamped": (9, cap - 3),
+        "odd_row": (1, [3, 0, cap, 95]),
+    }[mode]
+    if mode == "odd_row":
+        KV, D = 3, 4
+    g = torch.Generator().manual_seed(len(mode) + s_new)
+    fmt, store, (k_new, v_new) = _kv_append_case(g, name, in_dtype, B, cap,
+                                                 KV, D, s_new, dev)
+    length = torch.tensor(length, dtype=torch.int32, device=dev)
+    orig = [t.clone() for t in store]
+    want = [t.clone() for t in store]
+    posit_kv_append_torch(k_new, v_new, want[0][1], want[1][1], length, fmt)
+    before = posit_kv_append.launches
+    posit_kv_append(k_new, v_new, store[0][1], store[1][1], length, fmt)
+    assert posit_kv_append.launches == before + 1
+    for got, w, o in zip(store, want, orig):
+        assert torch.equal(got, w)
+        assert torch.equal(got[0], o[0])        # the other layer
+        if mode in ("decode", "odd_row"):       # the row at length == cap
+            row = length.tolist().index(cap)
+            assert torch.equal(got[1][row], o[1][row])
+
+
+def test_kv_append_kernel_raises_on_what_it_does_not_take(dev):
+    from repro_torch.kernels.posit_codec import posit_kv_append
+    fmt = get_format("posit8")
+    bits = torch.zeros(2, 8, 2, 16, dtype=torch.int8, device=dev)
+    rows = torch.zeros(2, 1, 2, 16, device=dev)
+    length = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):              # bits of another format
+        posit_kv_append(rows, rows, bits.to(torch.int16),
+                        bits.to(torch.int16), length, fmt)
+    with pytest.raises(ValueError):             # not contiguous
+        posit_kv_append(rows, rows, bits.transpose(2, 3), bits, length, fmt)
+    with pytest.raises(ValueError):             # past the capacity
+        posit_kv_append(rows.expand(2, 9, 2, 16).contiguous(),
+                        rows.expand(2, 9, 2, 16).contiguous(), bits,
+                        bits.clone(), length, fmt)
+    with pytest.raises(ValueError):             # a CPU tensor among them
+        posit_kv_append(rows, rows, bits, bits.clone(), length.cpu(), fmt)
 
 
 def test_kernel_route_rfft_equals_plain_route(dev):

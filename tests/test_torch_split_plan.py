@@ -8,10 +8,15 @@ schedule (``grouped_schedule``) is held against the plain version on the
 whole G and against the TPU kernel at G = 12 and G = 48 (granite-20b's 48
 query heads over one KV head).
 
-``kv_split_plan`` (B6) and ``matmul_plan`` (B7) are pure Python, so their
-guarantees are held here: every split non-empty, every key block or K slab
-covered once, one split where the cache fits one key block, enough thread
-blocks to fill 132 SMs at the long cache and at the FFN width.  The CUDA
+``kv_split_plan`` (B6), ``matmul_plan`` (B7) and ``round_matmul_plan``
+(B3) are pure Python, so their guarantees are held here: every split
+non-empty, every key block, K slab or k covered once, every output of the
+rounded matmul in exactly one tile, one split where the cache fits one key
+block, enough thread blocks to fill 132 SMs at the long cache and at the
+FFN width.  B3's summation order (each thread's every-256th k, the warp's
+shuffle tree, the warps in order, the K splits in order) is mirrored by
+``round_matmul_mirror`` and held within one posit ulp of the TPU kernel in
+interpret mode at the mel and centroid shapes.  The CUDA
 kernel's schedule for B6 (key blocks split across thread blocks, masked
 blocks and rows never read, (m, l, acc) partials merged in split order) is
 mirrored op for op by ``split_schedule`` below and held within rtol = atol
@@ -26,14 +31,18 @@ import torch
 from repro.core.formats import PositFormat as JPositFormat
 from repro.kernels import ref
 from repro.kernels.posit_kv_attention import posit_kv_attention as jkv
-from repro_torch.core.formats import PositFormat
-from repro_torch.core.posit import decode
+from repro.kernels.posit_matmul import posit_matmul_round_2d
+from repro_torch.core.formats import PositFormat, get_format
+from repro_torch.core.posit import decode, encode, round_posit_math
 from repro_torch.kernels.posit_kv_attention import (BLOCKS_PER_SM, NEG_INF,
                                                     block_plan,
                                                     kv_split_plan, lane_plan,
                                                     posit_kv_attention_torch,
                                                     query_groups)
-from repro_torch.kernels.posit_matmul import matmul_plan
+from repro_torch.kernels.posit_matmul import (ROUND_ACC, ROUND_THREADS,
+                                              matmul_plan,
+                                              posit_matmul_round_torch,
+                                              round_matmul_plan)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 H100_SMS = 132
@@ -231,3 +240,108 @@ def test_grouped_schedule_matches_plain_and_pallas_kernel(n, G):
                               jnp.asarray(lengths[b], jnp.int32), jf, bs=bs,
                               interpret=True))
         np.testing.assert_allclose(got[b, 0].numpy(), want, **TOL)
+
+
+# The rounded matmul's main-path shapes (M, K, N): mel, centroid, DCT and
+# forest votes at the cough batch of 32 (64 rows).
+MAIN_PATH = [(64, 2049, 20), (64, 2049, 1), (64, 20, 13), (32, 10, 1)]
+
+
+@pytest.mark.parametrize("M,K,N", MAIN_PATH + [
+    (1, 1, 1), (37, 2049, 20), (1, 4096, 1), (4096, 1, 1), (1, 1, 4096),
+    (4096, 4096, 8), (8, 4096, 4096), (129, 255, 3), (33, 257, 17),
+    (70, 513, 5), (5, 3, 2), (64, 0, 20), (300, 4096, 64)])
+def test_round_matmul_plan_covers_every_output_and_k_once(M, K, N):
+    tm, tn, splits, per = round_matmul_plan(M, K, N, H100_SMS)
+    assert tn in (1, 2, 4, 8) and tm * tn == ROUND_ACC
+    assert tn >= min(N, 8)
+    assert 1 <= splits <= 16 and per % ROUND_THREADS == 0
+    # block x of the grid: rows (x // n_tiles) tm + l // tn, columns
+    # (x % n_tiles) tn + l % tn of lane l's output
+    n_tiles = -(-N // tn)
+    x = np.arange(-(-M // tm) * n_tiles)[:, None]
+    lane = np.arange(ROUND_ACC)[None, :]
+    m = (x // n_tiles) * tm + lane // tn
+    n = (x % n_tiles) * tn + lane % tn
+    inside = (m < M) & (n < N)
+    hits = np.bincount((m * N + n)[inside], minlength=M * N)
+    assert np.all(hits == 1)
+    # split s, thread t: k = s per + t, s per + t + 256, ... below the
+    # split's end; together every k once, no split empty
+    ks = [k for s in range(splits) for t in range(ROUND_THREADS)
+          for k in range(s * per + t, min(K, (s + 1) * per), ROUND_THREADS)]
+    assert sorted(ks) == list(range(K))
+    assert all(s * per < K for s in range(splits)) or K == 0
+
+
+def test_round_matmul_plan_splits_k_where_the_tiles_are_few():
+    """The mel and centroid products have 48 and 2 output tiles: K is split
+    until the blocks reach the SMs or one k a thread, the DCT and votes
+    (K <= 256) are not split."""
+    tm, tn, splits, _ = round_matmul_plan(64, 2049, 20, H100_SMS)
+    assert (tm, tn) == (4, 8) and 48 * splits >= H100_SMS
+    tm, tn, splits, per = round_matmul_plan(64, 2049, 1, H100_SMS)
+    assert (tm, tn, per) == (32, 1, ROUND_THREADS) and splits == 9
+    assert round_matmul_plan(64, 20, 13, H100_SMS)[2] == 1
+    assert round_matmul_plan(32, 10, 1, H100_SMS)[2] == 1
+
+
+def round_matmul_mirror(a, b, fmt, sms):
+    """The rounded matmul kernel's summation order in plain torch: thread
+    t of split s adds the products of k = s per + t + 256 i in order; each
+    warp adds its lanes' partials pairwise across lane ^ 16, 8, 4, 2, 1;
+    the eight warps' sums are added in order, then the splits in order,
+    and the sum is rounded once."""
+    M, K = a.shape
+    N = b.shape[1]
+    _, _, splits, per = round_matmul_plan(M, K, N, sms)
+    t = torch.arange(ROUND_THREADS)
+    lane = torch.arange(32)
+    total = None
+    for s in range(splits):
+        end = min(K, (s + 1) * per)
+        acc = torch.zeros(ROUND_THREADS, M, N, dtype=a.dtype)
+        for base in range(s * per, end, ROUND_THREADS):
+            k = base + t
+            live = k < end
+            k = torch.where(live, k, 0)
+            prod = a[:, k].T[:, :, None] * b[k][:, None, :]
+            acc = acc + torch.where(live[:, None, None], prod, 0.0)
+        x = acc.reshape(ROUND_THREADS // 32, 32, M, N)
+        for o in (16, 8, 4, 2, 1):
+            x = x + x[:, lane ^ o]
+        part = x[0, 0]
+        for w in range(1, ROUND_THREADS // 32):
+            part = part + x[w, 0]
+        total = part if total is None else total + part
+    return round_posit_math(total, fmt)
+
+
+def _ulp_distance(a, b, fmt):
+    def ordered(v):
+        p = encode(v, fmt).to(torch.int64) & fmt.mask
+        return (p ^ fmt.nar_pattern) - fmt.nar_pattern
+    return (ordered(a) - ordered(b)).abs()
+
+
+@pytest.mark.parametrize("name", ["posit8", "posit10", "posit16"])
+@pytest.mark.parametrize("shape", ["mel", "centroid"])
+def test_round_matmul_mirror_within_one_ulp_of_pallas_kernel(name, shape):
+    """Power spectra (2^0-2^40) against a non-negative filterbank or the
+    centroid's 0-8000 Hz bin frequencies, rounded to the format as the
+    cough path rounds them."""
+    fmt = get_format(name)
+    rng = np.random.default_rng(len(name) + len(shape))
+    M, K, N = (64, 2049, 20) if shape == "mel" else (64, 2049, 1)
+    psd = (rng.random((M, K)) * np.exp2(rng.integers(0, 40, (M, K))))
+    b = (np.maximum(rng.standard_normal((K, N)), 0) if shape == "mel"
+         else np.linspace(0, 8000, K)[:, None])
+    a = round_posit_math(torch.from_numpy(psd.astype(np.float32)), fmt)
+    b = round_posit_math(torch.from_numpy(b.astype(np.float32)), fmt)
+    got = round_matmul_mirror(a, b, fmt, H100_SMS)
+    want = torch.from_numpy(np.array(posit_matmul_round_2d(
+        jnp.asarray(a.numpy()), jnp.asarray(b.numpy()),
+        JPositFormat(fmt.n, fmt.es), interpret=True)))
+    assert int(_ulp_distance(got, want, fmt).max()) <= 1
+    assert int(_ulp_distance(got, posit_matmul_round_torch(a, b, fmt),
+                             fmt).max()) <= 1
