@@ -18,17 +18,25 @@ Phases, each fatal on failure:
      decode also on views at every element offset within 16 bytes and
      ragged lengths (every decode container, both output types), the
      decode tables built on the card against their plain version, the
-     KV-attention at 48 query rows per KV head;
+     KV-attention at 48 query rows per KV head; the FFT stage-range
+     kernel bitwise at the cough rfft's middle stages (batch 32), whole
+     FFTs of 4096 and 256 points in posit10 and posit8 (two passes, odd
+     batches) and in f64, and equal to the earlier route it replaced; the
+     multiply-add at every element offset within 16 bytes and under row,
+     column and host 0-d broadcasts, in f32 and f64;
   3. the stream path: a 64-patient fleet (32 cough patients at posit16
      with every fourth pinned to fp16, 32 ECG patients at posit10 with
      every fourth pinned to posit8)
      streamed in ragged chunks through ``StreamEngine``, with every window
      scored exactly once, every stream kernel's launch count above zero
      (the round's equal to the reference design's 8221, the rounded
-     matmul's to its 12 calls),
+     matmul's to its 12 calls, the FFT stage range's to 3, one per posit16
+     cough batch, and no butterfly launch),
      and the outputs checked against the same windows run by the port on
      the CPU; then the same fleet once more under ``torch.profiler`` for
-     the device's busy share and its top kernels;
+     the device's busy share, its device kernels and its top kernels, and
+     four times more in turns with its FFT stages through the stage-range
+     kernel and through the earlier route (windows/s of each);
   4. each kernel's median time per call (CUDA events) and its device time
      per call (profiler: every kernel the call launches, a combine kernel
      included) beside its bound, its plain version's time and, where one
@@ -41,7 +49,13 @@ Phases, each fatal on failure:
      shapes beside an empty kernel's device time; the KV append at the
      serve shape (posit8 and posit16) beside the earlier route it replaced
      (``earlier_kv_append``: casts, two encode launches and the eager
-     scatter), each with its device kernels per call;
+     scatter), each with its device kernels per call; the FFT stage range
+     at the cough shape beside the earlier route it replaced
+     (``earlier_fft_stages``: nine butterfly launches with their copies
+     and joins), each with its device kernels per call, and its stage
+     loop's instructions counted in its SASS beside the issue and ALU-pipe
+     floors that count gives; the multiply-add
+     with three full operands, a row broadcast and a host 0-d operand;
   5. the serve path: qwen3-8b at full width (36 layers, random weights from
      a seeded generator on the card) behind ``ServingEngine`` with two
      lanes (posit16 weights; posit8 and posit16 KV), 12 requests, every
@@ -95,6 +109,21 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 FLEET_ROUND_LAUNCHES = 8221    # the 64-patient fleet's posit_round launches
 FLEET_MATMUL_ROUND_CALLS = 12  # ... and its posit_matmul_round calls
+FLEET_FFT_STAGE_LAUNCHES = 3   # ... and its posit_fft_stages launches (one
+                               # per posit16 cough batch of 32 windows)
+# an H100 SXM's warp-instruction issue rate (4 schedulers an SM, one warp
+# instruction a clock each, at the 1.98 GHz boost clock) and the rate of its
+# integer ALU pipe (16 INT32 lanes a scheduler: a warp instruction every
+# other clock), for the floors of the FFT stage range's SASS count
+SM_CLOCK_HZ = 1.98e9
+WARP_ISSUE_PER_SM_CLOCK = 4
+WARP_ALU_PER_SM_CLOCK = 2
+# the opcodes the SASS count files under the integer ALU pipe (IMAD, which
+# issues to the FMA pipe, is not among them)
+ALU_OPCODES = ("IADD3", "LOP3", "SHF", "LEA", "ISETP", "SEL", "IMNMX",
+               "VIMNMX", "FLO", "POPC", "PRMT", "BMSK", "SGXT", "IABS",
+               "BREV", "PLOP3", "P2R", "R2P", "LOP")
+PROFILE_TRIES = 3              # profiles taken before a device time is NaN
 SERVE_ARCH = "qwen3-8b"
 SERVE_BATCH = 4                # slots per lane
 SERVE_MAX_PROMPT = 64
@@ -154,20 +183,25 @@ def device_ms(fn, kernels, reps: int = 50) -> float:
     whose name contains one of ``kernels`` (a name or a tuple of names: a
     combine or reduction kernel the call launches is counted), from
     ``torch.profiler`` over ``reps`` calls (no host time), divided by the
-    number of calls; NaN if the profiler recorded none."""
+    number of calls.  A profile that recorded none of them (the profiler
+    drops a window's events now and then) is taken again, up to
+    ``PROFILE_TRIES`` profiles; NaN if none recorded any."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     names = (kernels,) if isinstance(kernels, str) else tuple(kernels)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if any(k in e.key for k in names)]
-    us = sum(getattr(e, "self_device_time_total", 0) for e in hits)
-    return us / reps / 1e3 if us else float("nan")
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if any(k in e.key for k in names)]
+        us = sum(getattr(e, "self_device_time_total", 0) for e in hits)
+        if us:
+            return us / reps / 1e3
+    return float("nan")
 
 
 def device_kernels(fn, reps: int = 50):
@@ -219,20 +253,64 @@ def ptxas_report(log_text: str):
     return rows
 
 
-def sass_count(lib, opcode: str):
-    """{kernel: count} of SASS instructions whose opcode starts with
-    ``opcode`` in the shared library ``lib`` (``cuobjdump -sass``)."""
+def sass_listing(lib):
+    """{kernel: [(address, instruction), ...]} of the shared library
+    ``lib``'s SASS (``cuobjdump -sass``), each instruction without its
+    predicate guard."""
+    import re
     from repro_torch.kernels import build
     tool = Path(build._nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                          text=True, timeout=300, check=True).stdout
-    counts, fn = {}, None
+    fns, fn = {}, None
     for line in out.splitlines():
         if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-        elif fn and f" {opcode}" in line:
-            counts[fn] = counts.get(fn, 0) + 1
-    return counts
+            fn = fns.setdefault(line.split("Function :")[1].strip(), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([^;]*);",
+                     line)
+        if m and fn is not None:
+            fn.append((int(m.group(1), 16), m.group(2).strip()))
+    return fns
+
+
+def sass_count(lib, opcode: str):
+    """{kernel: count} of SASS instructions whose opcode starts with
+    ``opcode`` in the shared library ``lib``."""
+    return {fn: n for fn, ins in sass_listing(lib).items()
+            if (n := sum(i.startswith(opcode) for _, i in ins))}
+
+
+def stage_loop_sass(lib):
+    """The f32 stage-range kernel's stage loop read off its SASS: (the
+    instructions of one stage's loop body, those of its butterfly loop's
+    body, and the ALU-pipe ones (``ALU_OPCODES``) among each).  The
+    stage loop is the one whose backward branch follows the kernel's last
+    barrier (the one ending a stage), the butterfly loop the one whose
+    backward branch lies between that barrier and the first (the load's);
+    the kernel keeps both loops rolled, so each body is one copy.  A thread
+    that takes one butterfly a stage issues the stage body once a stage,
+    less the few instructions a zero or NaN value skips."""
+    import re
+    ins = next(v for k, v in sass_listing(lib).items()
+               if "posit_fft_stages_kernelIf" in k)
+    at = {addr: i for i, (addr, _) in enumerate(ins)}
+    bars = [i for i, (_, x) in enumerate(ins) if x.startswith("BAR")]
+
+    def back(lo, hi):                   # first backward branch in (lo, hi)
+        for i in range(lo + 1, hi):
+            m = re.match(r"BRA(?:\.\S+)?\s+(?:!?U?P\w+,\s*)?0x([0-9a-f]+)",
+                         ins[i][1])
+            if m and int(m.group(1), 16) <= ins[i][0]:
+                return at[int(m.group(1), 16)], i
+        raise AssertionError("posit_fft_stages_kernel<float>: no loop found "
+                             "around its barriers in the SASS")
+    s0, s1 = back(bars[-1], len(ins))
+    b0, b1 = back(bars[0], bars[-1])
+    ops = [x.split()[0].split(".")[0] for _, x in ins]
+    return (s1 - s0 + 1, b1 - b0 + 1,
+            sum(op in ALU_OPCODES for op in ops[s0:s1 + 1]),
+            sum(op in ALU_OPCODES for op in ops[b0:b1 + 1]))
 
 
 def bits_equal(a, b) -> bool:
@@ -411,6 +489,107 @@ def check_kernels(dev, report):
             f"of outputs not bitwise equal, the same bits on a second call")
     report["posit_matmul_round"]["max_abs_err"] = err
     return shapes
+
+
+def earlier_fft_stages(z, twiddles, s0, s1, fmt):
+    """The FFT's stages ``s0 .. s1-1`` as they ran before the stage-range
+    kernel (``posit_fft_stages``'s arguments and results): one
+    ``posit_butterfly`` launch a stage, the four half-planes copied
+    contiguous before it and u and v joined by two ``torch.cat`` and a
+    ``torch.stack`` after it.  Timed beside ``posit_fft_stages``, in one
+    run, on one card."""
+    import torch
+    from repro_torch.kernels.posit_fft import MIN_RUN, stage_twiddles
+    from repro_torch.kernels.posit_round import posit_butterfly
+    nb, tr, n = z.dim() - 3, True, twiddles.shape[-1] + 1
+    for s in range(s0, s1):
+        R = n >> s
+        if tr and R // 2 < MIN_RUN:
+            z = z.transpose(-1, -2)
+            tr = False
+        if tr:
+            e, o = z[..., : R // 2], z[..., R // 2:]
+        else:
+            e, o = z[..., : R // 2, :], z[..., R // 2:, :]
+        ax = -2 if tr else -1
+        shp = (*([1] * nb), -1, 1) if tr else (*([1] * nb), 1, -1)
+        wr, wi = stage_twiddles(twiddles, s)
+        u_re, u_im, v_re, v_im = posit_butterfly(
+            e[0].contiguous(), e[1].contiguous(), o[0].contiguous(),
+            o[1].contiguous(), wr.reshape(shp), wi.reshape(shp), fmt)
+        z = torch.stack([torch.cat([u_re, v_re], dim=ax),
+                         torch.cat([u_im, v_im], dim=ax)])
+    return z, tr
+
+
+def fft_state(gen, fmt, n, s0, batch, dtype, dev):
+    """A stacked FFT state entering stage ``s0`` (transposed), posit
+    values of ``fmt``."""
+    import torch
+    from repro_torch.kernels.posit_round import posit_round_torch
+    L, R = 1 << s0, n >> s0
+    return posit_round_torch(torch.randn(2, *batch, L, R, generator=gen,
+                                         dtype=dtype) * 2.0 ** 10,
+                             fmt).to(dev)
+
+
+def check_fft_stages(dev, report):
+    """``posit_fft_stages`` bitwise against its plain version: the cough
+    rfft's middle stages at batch 32, whole FFTs of 4096 and 256 points in
+    posit10 and posit8 (two passes; odd batches), one f64 case; and the
+    earlier route bitwise equal to it at the cough shape."""
+    import torch
+    from repro_torch.apps.cough import FFT_N
+    from repro_torch.apps.dsp import get_fft_plan
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels.posit_fft import (fft_pass_plan,
+                                               posit_fft_stages,
+                                               posit_fft_stages_torch)
+    gen = torch.Generator().manual_seed(SEED + 8)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    f32, f64 = torch.float32, torch.float64
+    levels = FFT_N.bit_length() - 1
+    cases = [("posit16", FFT_N, 2, levels - 1, (MAX_BATCH, 2), f32),
+             ("posit10", FFT_N, 0, levels, (3,), f32),
+             ("posit8", FFT_N, 0, levels, (2, 2), f32),
+             ("posit10", 256, 0, 8, (MAX_BATCH, 2), f32),
+             ("posit8", 256, 0, 8, (3,), f32),
+             ("posit16", FFT_N, 2, levels - 1, (5,), f64)]
+    err, multi_odd = 0.0, False
+    for name, n, s0, s1, batch, dtype in cases:
+        fmt = get_format(name)
+        plan = get_fft_plan(n, name, dtype, str(dev))
+        z = fft_state(gen, fmt, n, s0, batch, dtype, dev)
+        k, tr_k = posit_fft_stages(z, plan.table, s0, s1, fmt)
+        p, tr_p = posit_fft_stages_torch(z, plan.table, s0, s1, fmt)
+        torch.cuda.synchronize()
+        if tr_k != tr_p or not bits_equal(k, p):
+            raise AssertionError(f"posit_fft_stages {name} n={n} stages "
+                                 f"{s0}..{s1 - 1} batch {batch}: not "
+                                 f"bitwise equal to its plain version")
+        err = max(err, max_abs_err(k, p))
+        nfft = z[0].numel() // n
+        passes = fft_pass_plan(n, s0, s1, nfft, dtype, sms)
+        multi_odd |= len(passes) > 1 and nfft % 2 == 1
+        log(f"  posit_fft_stages {name} {str(dtype)[6:]} n={n} stages "
+            f"{s0}..{s1 - 1} batch {batch}, passes (first stage, end, group, "
+            f"groups a block, threads, shared bytes, blocks) "
+            f"{[tuple(q) for q in passes]}: bitwise")
+    if not multi_odd:
+        raise AssertionError("posit_fft_stages: no case with two passes "
+                             "and an odd batch")
+    fmt = get_format("posit16")
+    plan = get_fft_plan(FFT_N, fmt.name, f32, str(dev))
+    z = fft_state(gen, fmt, FFT_N, 2, (MAX_BATCH, 2), f32, dev)
+    k, _ = posit_fft_stages(z, plan.table, 2, levels - 1, fmt)
+    e, _ = earlier_fft_stages(z, plan.table, 2, levels - 1, fmt)
+    torch.cuda.synchronize()
+    if not bits_equal(k, e.contiguous()):
+        raise AssertionError("posit_fft_stages: not bitwise equal to the "
+                             "earlier nine-launch route")
+    log(f"  posit_fft_stages at the cough shape {tuple(z.shape)}: bitwise "
+        f"equal to the earlier route (one posit_butterfly launch a stage)")
+    report["posit_fft_stages"]["max_abs_err"] = err
 
 
 def nan_aware_equal(a, b) -> bool:
@@ -736,6 +915,47 @@ def check_format_kernels(dev, report):
         log(f"  posit_fma_round {name} {tuple(k.shape)} "
             f"{str(k.dtype)[6:]}{' c = -fl(a*b)' if i == 3 else ''}: "
             f"bitwise")
+    # the flat path at every element offset within 16 bytes (operands
+    # alike: 16-byte loads with a head and a tail, the results stored one
+    # value at a time where the output is not at their offset; unlike: one
+    # value a thread), and the broadcast path under row, column and host
+    # 0-d operands
+    fmt = get_format("posit10")
+    for dtype in (torch.float32, torch.float64):
+        base = [torch.randn(70000, generator=gen, dtype=dtype) * 41
+                for _ in range(3)]
+        on = [t.to(dev) for t in base]
+        per = 16 // base[0].element_size()
+        cases = [((off, off, off), m) for off in range(per)
+                 for m in (1, per + 1, 4099, 65537)]
+        cases += [((0, off, (2 * off) % per), 40001)
+                  for off in range(1, per)]
+        for offs, m in cases:
+            k = posit_fma_round(*(t[o:o + m] for t, o in zip(on, offs)), fmt)
+            p = posit_fma_round_torch(*(t[o:o + m]
+                                        for t, o in zip(on, offs)), fmt)
+            torch.cuda.synchronize()
+            if not bits_equal(k, p):
+                raise AssertionError(f"posit_fma_round {dtype} views at "
+                                     f"offsets {offs} of {m}: not bitwise")
+            err = max(err, max_abs_err(k, p))
+        a, b, c = (t[:64 * 96].reshape(64, 96) for t in on)
+        s = torch.tensor(0.375, dtype=dtype)
+        bcast = ((a, b[:1], c), (a[:, :1], b, c[:1]), (a, s, c), (s, b, s),
+                 (a[:, :1], b[:1], s), (a.T, b.T, c.T))
+        for ops in bcast:
+            k = posit_fma_round(*ops, fmt)
+            p = posit_fma_round_torch(*(t.to(dev) for t in ops), fmt)
+            torch.cuda.synchronize()
+            if not bits_equal(k, p):
+                raise AssertionError(f"posit_fma_round {dtype} broadcast "
+                                     f"{[tuple(t.shape) for t in ops]}: "
+                                     f"not bitwise")
+            err = max(err, max_abs_err(k, p))
+        log(f"  posit_fma_round {str(dtype)[6:]}: {len(cases)} views at "
+            f"element offsets 0-{per - 1} and ragged lengths, "
+            f"{len(bcast)} broadcasts (rows, columns, host 0-d, a "
+            f"transposed view): bitwise")
     report["posit_fma_round"]["max_abs_err"] = err
 
     # decode-fused matmul: the quickstart's shape and the FFN width in
@@ -1013,9 +1233,33 @@ def report_busy(prof, wall: float, what: str, top: int) -> None:
         return
     busy_s = sum(r[0] for r in rows) * 1e-6
     log(f"  {what}: {wall:.3f} s wall, device busy {busy_s * 1e3:.2f} ms "
-        f"({100 * busy_s / wall:.2f}% of wall)")
+        f"({100 * busy_s / wall:.2f}% of wall), "
+        f"{sum(r[1] for r in rows)} device kernels, copies and fills")
     for us, count, key in sorted(rows, reverse=True)[:top]:
         log(f"    {us / 1e3:9.3f} ms {count:7d} calls  {key[:70]}")
+
+
+def fleet_fft_route_ab(dev, forest, counters, card):
+    """The fleet four times more, in turns: its FFT stages through the
+    stage-range kernel, through the earlier route (``earlier_fft_stages``
+    in its place), the earlier route, the kernel; windows/s of each (host
+    clock)."""
+    from repro_torch.apps import dsp
+    kernel = dsp.posit_fft_stages
+    rates = {"kernel": [], "earlier": []}
+    try:
+        for name in ("kernel", "earlier", "earlier", "kernel"):
+            dsp.posit_fft_stages = (kernel if name == "kernel"
+                                    else earlier_fft_stages)
+            engine, _, _, wall, launches = run_main_path(dev, forest,
+                                                         counters)
+            del engine
+            rates[name].append(N_PATIENTS * N_WINDOWS / wall)
+    finally:
+        dsp.posit_fft_stages = kernel
+    log(f"  fleet windows/s, FFT stages by the stage-range kernel "
+        f"{rates['kernel']} against the earlier route {rates['earlier']} "
+        f"(runs in turns kernel, earlier, earlier, kernel) ({card})")
 
 
 def profile_main_path(dev, forest, counters):
@@ -1429,7 +1673,7 @@ def run_study(dev, counters):
         if not ok:
             raise AssertionError(f"format study: {what} does not hold")
     log(f"  the paper's orderings hold: {'; '.join(w for w, _ in checks)}")
-    for name in ("posit_round", "posit_butterfly", "posit_matmul_round"):
+    for name in ("posit_round", "posit_fft_stages", "posit_matmul_round"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched in the study")
     log(f"  launches in the study: {launches}")
@@ -1577,6 +1821,91 @@ def time_kernels(dev, shapes, report):
     return rows
 
 
+def time_fft_stages(dev, report):
+    """The stage-range kernel at the cough path's shape (the rfft's middle
+    stages 2..10 of a posit16 batch of 32 windows x 2 channels) beside the
+    earlier route (``earlier_fft_stages``): per call (CUDA events), the
+    kernel's device time by name, and the device time and kernels per call
+    of every device event (``device_kernels``).  Returns the earlier
+    route's row, logged beside the JSON line's."""
+    import torch
+    from repro_torch.apps.cough import FFT_N
+    from repro_torch.apps.dsp import get_fft_plan
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels import build
+    from repro_torch.kernels.posit_fft import (fft_pass_plan,
+                                               posit_fft_stages,
+                                               posit_fft_stages_torch)
+    fmt = get_format("posit16")
+    gen = torch.Generator().manual_seed(SEED + 9)
+    levels = FFT_N.bit_length() - 1
+    s0, s1 = 2, levels - 1
+    plan = get_fft_plan(FFT_N, fmt.name, torch.float32, str(dev))
+    z = fft_state(gen, fmt, FFT_N, s0, (MAX_BATCH, 2), torch.float32, dev)
+    nbytes = 2 * z.numel() * 4 + plan.table.numel() * 4
+    butterflies = z.numel() // 4 * (s1 - s0)   # half a plane a stage
+    # floors from the SASS count: each thread issues a stage's body once a
+    # stage (its butterfly body once per butterfly it takes)
+    sms = build.sm_count(dev.index or 0)
+    passes = fft_pass_plan(FFT_N, s0, s1, z.numel() // (2 * FFT_N),
+                           z.dtype, sms)
+    stage_ins, bfly_ins, stage_alu, bfly_alu = stage_loop_sass(
+        build.library_path("posit_fft"))
+    issued = alu = 0
+    for p in passes:
+        per_thread = -(-p.groups_per_block * p.group // 2 // p.threads)
+        warp_stages = p.blocks * -(-p.threads // 32) * (p.s1 - p.s0)
+        issued += warp_stages * (stage_ins + bfly_ins * (per_thread - 1))
+        alu += warp_stages * (stage_alu + bfly_alu * (per_thread - 1))
+    all_ms, kernels = device_kernels(
+        lambda: posit_fft_stages(z, plan.table, s0, s1, fmt))
+    report["posit_fft_stages"].update(
+        ms=cuda_ms(lambda: posit_fft_stages(z, plan.table, s0, s1, fmt)),
+        device_ms=device_ms(
+            lambda: posit_fft_stages(z, plan.table, s0, s1, fmt),
+            "posit_fft_stages_kernel"),
+        device_kernels=kernels,
+        plain_ms=cuda_ms(lambda: posit_fft_stages_torch(
+            z, plan.table, s0, s1, fmt), reps=2, samples=5),
+        bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                     10 * butterflies / F32_FLOPS_PER_S) * 1e3,
+        bound_by="bytes", library_ms=None,
+        sass_stage_instructions=stage_ins,
+        sass_butterfly_instructions=bfly_ins,
+        sass_stage_alu_instructions=stage_alu,
+        issue_floor_ms=issued / (sms * WARP_ISSUE_PER_SM_CLOCK
+                                 * SM_CLOCK_HZ) * 1e3,
+        alu_floor_ms=alu / (sms * WARP_ALU_PER_SM_CLOCK * SM_CLOCK_HZ)
+        * 1e3,
+        shape=[*z.shape, f"stages {s0}..{s1 - 1}"])
+    row = report["posit_fft_stages"]
+    e_ms, e_kernels = device_kernels(
+        lambda: earlier_fft_stages(z, plan.table, s0, s1, fmt))
+    earlier = dict(
+        name="earlier_fft_stages", shape=row["shape"],
+        ms=cuda_ms(lambda: earlier_fft_stages(z, plan.table, s0, s1, fmt)),
+        device_ms=e_ms, device_kernels=e_kernels, plain_ms=None,
+        bound_ms=row["bound_ms"], bound_by="bytes", library_ms=None,
+        butterfly_device_ms=device_ms(
+            lambda: earlier_fft_stages(z, plan.table, s0, s1, fmt),
+            "posit_butterfly_kernel"))
+    log(f"  FFT stages {s0}..{s1 - 1} at {tuple(z.shape)} posit16: the "
+        f"stage-range kernel {row['ms']:.4f} ms per call, "
+        f"{row['device_ms']:.4f} ms on the device ({all_ms:.4f} ms and "
+        f"{kernels:g} kernels of every device event per call), byte bound "
+        f"{row['bound_ms']:.5f} ms; SASS: {stage_ins} instructions a "
+        f"stage ({bfly_ins} of them the butterfly loop's, {stage_alu} on "
+        f"the ALU pipe), floors at {SM_CLOCK_HZ / 1e9:g} GHz on {sms} SMs "
+        f"{row['issue_floor_ms']:.4f} ms at one warp instruction a "
+        f"scheduler a clock and {row['alu_floor_ms']:.4f} ms at the ALU "
+        f"pipe's rate; the earlier route "
+        f"{earlier['ms']:.4f} ms per call, {e_ms:.4f} ms and "
+        f"{e_kernels:g} kernels on the device "
+        f"({earlier['butterfly_device_ms']:.4f} ms of it in the "
+        f"{s1 - s0} butterfly launches)")
+    return [earlier]
+
+
 def time_format_kernels(dev, report):
     """The multiply-add at the round kernel's main-path shape (32, 2, 4096)
     f32, all three operands full size; the decode-fused matmul at the FFN
@@ -1595,13 +1924,48 @@ def time_format_kernels(dev, report):
     a, b, c = ((torch.randn(MAX_BATCH, 2, 4096, generator=gen) * 300).to(dev)
                for _ in range(3))
     n = a.numel()
-    report["posit_fma_round"].update(
-        ms=cuda_ms(lambda: posit_fma_round(a, b, c, fmt)),
-        device_ms=device_ms(lambda: posit_fma_round(a, b, c, fmt),
-                            "posit_fma_round_kernel"),
-        plain_ms=cuda_ms(lambda: posit_fma_round_torch(a, b, c, fmt)),
-        bound_ms=4 * n * 4 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None, shape=list(a.shape))
+    rows = []
+    # three full operands (the flat path), a row broadcast and a host 0-d
+    # operand (the broadcast path, the scalar by value)
+    row_b, host_c = b[:1, :1].contiguous(), torch.tensor(0.375)
+    for ops, what in (((a, b, c), "three full"),
+                      ((a, row_b, c), "b a (1, 1, 4096) row"),
+                      ((a, b, host_c), "c a host 0-d")):
+        nbytes = (sum(t.numel() for t in ops if t.dim()) + n) * 4
+        row = dict(
+            name="posit_fma_round", shape=[*a.shape, what],
+            ms=cuda_ms(lambda: posit_fma_round(*ops, fmt)),
+            device_ms=device_ms(lambda: posit_fma_round(*ops, fmt),
+                                "posit_fma_round_"),
+            plain_ms=cuda_ms(lambda: posit_fma_round_torch(*ops, fmt)),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=None)
+        if what == "three full":
+            report["posit_fma_round"].update(row)
+        else:
+            rows.append(row)
+    # host microseconds per call over 10^4 calls: the wrapper in each case
+    # beside the steps it cannot skip
+    from repro_torch.kernels import posit_round as pr
+    lib = pr._kernels()
+    fn, stream = pr._fma_fns[torch.float32], torch.cuda.current_stream(
+        dev).cuda_stream
+    out = torch.empty_like(a)
+    ptrs = (a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr())
+    us = {
+        "the wrapper, three full": lambda: posit_fma_round(a, b, c, fmt),
+        "the wrapper, a row": lambda: posit_fma_round(a, row_b, c, fmt),
+        "the wrapper, a host 0-d": lambda: posit_fma_round(a, b, host_c,
+                                                           fmt),
+        "torch.empty_like": lambda: torch.empty_like(a),
+        "ctypes call (the launch)": lambda: fn(*ptrs[:3], 0.0, 0.0, 0.0,
+                                               ptrs[3], n, None, fmt.n,
+                                               fmt.es, stream),
+        "bare launch of an empty kernel":
+            lambda: lib.posit_empty_launch(stream),
+    }
+    log("  posit_fma_round (32, 2, 4096) f32, host us per call over 10^4 "
+        "calls: " + "; ".join(f"{k} {host_us(f):.2f}" for k, f in us.items()))
 
     M, K, N = FFN_SHAPE
     ab, bb = matmul_case(gen, M, K, N, fmt, dev)
@@ -1626,6 +1990,7 @@ def time_format_kernels(dev, report):
         bound_by="bytes" if by_bytes else "operations",
         library_ms=cuda_ms(lambda: torch.matmul(a16, b16)),
         unfused_ms=cuda_ms(unfused), shape=[M, K, N, "posit16"])
+    return rows
 
 
 def earlier_posit_round(x, fmt):
@@ -1912,6 +2277,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.posit_codec import (posit_decode, posit_encode,
                                                  posit_kv_append)
+    from repro_torch.kernels.posit_fft import posit_fft_stages
     from repro_torch.kernels.posit_kv_attention import (
         posit_kv_attention, posit_kv_attention_torch)
     from repro_torch.kernels.posit_matmul import (posit_matmul,
@@ -1932,7 +2298,7 @@ def main() -> int:
     libs = build.build()
     log(f"  built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name in ("posit_codec", "posit_round", "posit_matmul",
+    for name in ("posit_codec", "posit_round", "posit_fft", "posit_matmul",
                  "posit_kv_attention"):
         text = build.BUILD_LOGS.get(name)
         if text is None:
@@ -1960,6 +2326,10 @@ def main() -> int:
         "posit_butterfly": dict(
             name="posit_butterfly", route="cuda",
             source=f"{src}/csrc/posit_round.cu",
+            replaces="src/repro/kernels/posit_round.py:101"),
+        "posit_fft_stages": dict(
+            name="posit_fft_stages", route="cuda",
+            source=f"{src}/csrc/posit_fft.cu",
             replaces="src/repro/kernels/posit_round.py:101"),
         "posit_matmul_round": dict(
             name="posit_matmul_round", route="cuda",
@@ -1990,12 +2360,14 @@ def main() -> int:
             source=f"{src}/csrc/posit_matmul.cu",
             replaces="src/repro/kernels/posit_matmul.py:57"),
     }
-    counters = (posit_round, posit_butterfly, posit_matmul_round,
-                posit_decode, posit_encode, posit_kv_append,
-                posit_kv_attention, posit_fma_round, posit_matmul)
-    stream_kernels = ("posit_round", "posit_butterfly", "posit_matmul_round")
+    counters = (posit_round, posit_butterfly, posit_fft_stages,
+                posit_matmul_round, posit_decode, posit_encode,
+                posit_kv_append, posit_kv_attention, posit_fma_round,
+                posit_matmul)
+    stream_kernels = ("posit_round", "posit_fft_stages", "posit_matmul_round")
     phase("phase 2: kernels against their plain versions")
     shapes = check_kernels(dev, report)
+    check_fft_stages(dev, report)
     check_serve_kernels(dev, report)
     check_format_kernels(dev, report)
 
@@ -2015,15 +2387,27 @@ def main() -> int:
         raise AssertionError(f"posit_matmul_round launched "
                              f"{launches['posit_matmul_round']} times on the"
                              f" fleet, not {FLEET_MATMUL_ROUND_CALLS}")
-    for name in stream_kernels:
+    if launches["posit_fft_stages"] != FLEET_FFT_STAGE_LAUNCHES:
+        raise AssertionError(f"posit_fft_stages launched "
+                             f"{launches['posit_fft_stages']} times on the "
+                             f"fleet, not {FLEET_FFT_STAGE_LAUNCHES}")
+    if launches["posit_butterfly"] != 0:
+        raise AssertionError(f"posit_butterfly launched "
+                             f"{launches['posit_butterfly']} times on the "
+                             f"fleet: the FFT stages take the stage-range "
+                             f"kernel")
+    # posit_butterfly is off the path now: its count, 0, is reported
+    for name in (*stream_kernels, "posit_butterfly"):
         report[name]["launches"] = launches[name]
     del engine
     profile_main_path(dev, forest, counters)
+    fleet_fft_route_ab(dev, forest, counters, card)
 
     phase("phase 4: times (median ms per call, CUDA events)")
     extra = time_kernels(dev, shapes, report)
+    extra += time_fft_stages(dev, report)
     extra += time_round_host(dev, report)
-    time_format_kernels(dev, report)
+    extra += time_format_kernels(dev, report)
     extra += time_serve_kernels(dev, report)
     for r in [*report.values(), *extra]:
         lib = ("-" if r["library_ms"] is None

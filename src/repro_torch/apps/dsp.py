@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.arith import Arith, get_fused_kernels, get_round_backend
-from repro_torch.kernels.posit_round import posit_butterfly
+from repro_torch.kernels.posit_fft import (MIN_RUN, posit_fft_stages,
+                                           posit_fft_stages_torch)
 
 
 def _rounded_table(values: np.ndarray, fmt_name: str, dtype: torch.dtype,
@@ -39,7 +40,9 @@ def _rounded_table(values: np.ndarray, fmt_name: str, dtype: torch.dtype,
 
 class FFTPlan:
     """Cached, pre-rounded twiddles for one (n, format, dtype, device) FFT:
-    ``stages[s]`` holds the stage-(s+1) twiddles ``(wr, wi)``.  No
+    ``stages[s]`` holds the stage-(s+1) twiddles ``(wr, wi)``, and
+    ``table`` all of them as one ``(2, n - 1)`` tensor (stage ``s`` at
+    offset ``2^s - 1``), which the stage-range kernel reads.  No
     bit-reversal table: the stage loops use the self-sorting Stockham
     layout and never permute."""
 
@@ -55,6 +58,9 @@ class FFTPlan:
             self.stages.append(
                 (_rounded_table(np.cos(ang), fmt_name, dtype, device),
                  _rounded_table(np.sin(ang), fmt_name, dtype, device)))
+        self.table = torch.stack([
+            torch.cat([w[c] for w in self.stages]) if self.stages
+            else torch.zeros(0, dtype=dtype, device=device) for c in (0, 1)])
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,8 +95,7 @@ def _butterfly(ar: Arith, e_re, e_im, o_re, o_im, wr, wi):
 # (..., R, L) "natural" late, with L the sub-DFT length completed so far and
 # R = n / L.  Both split butterfly partners into contiguous blocks; the one
 # transposed→natural switch happens when the split runs would drop below
-# _MIN_RUN elements.
-_MIN_RUN = 64
+# MIN_RUN elements (the stage-range kernel's own rule).
 
 
 def _stage_split(z_re, z_im, R: int, transposed: bool):
@@ -117,43 +122,47 @@ def _to_natural(z_re, z_im, transposed: bool):
 
 # ---------------------------------------------------------------------------
 # Fused stage loop: state stacked as z (2, ..., L, R), axis 0 the (re, im)
-# planes, so a stage is three rounded calls (products, twiddle joins, u ++ v)
-# instead of ten — or, under the kernel backend, one butterfly launch over
-# the whole plane.  The same elementary rounded ops in the same order as
-# ``_butterfly``, hence bit-identical to the unfused loop.  Under quire mode
-# the twiddle join is two fused two-term accumulations per output, as in
-# the unfused quire butterfly; the butterfly kernel, which rounds every
+# planes, so a stage is three rounded calls (products, twiddle joins, u ++ v;
+# ``posit_fft_stages_torch``) instead of ten — or, under the kernel backend,
+# a whole range of stages is one ``posit_fft_stages`` launch.  The same elementary rounded ops in the
+# same order as ``_butterfly``, hence bit-identical to the unfused loop.
+# Under quire mode the twiddle join is two fused two-term accumulations per
+# output, as in the unfused quire butterfly; the kernel, which rounds every
 # product, is bypassed.
 # ---------------------------------------------------------------------------
 
-def _fused_stage(ar: Arith, z: torch.Tensor, wr: torch.Tensor,
+def _quire_stage(ar: Arith, z: torch.Tensor, wr: torch.Tensor,
                  wi: torch.Tensor, R: int, tr: bool) -> torch.Tensor:
     nb = z.dim() - 3                       # batch dims between stack and L/R
     if tr:
         e, o = z[..., : R // 2], z[..., R // 2:]
     else:
         e, o = z[..., : R // 2, :], z[..., R // 2:, :]
-    ax = -2 if tr else -1
     shp = (*([1] * nb), -1, 1) if tr else (*([1] * nb), 1, -1)
-    if ar.quire:
-        t = torch.stack(_twiddle_mul(ar, o[0], o[1], wr.reshape(shp),
-                                     wi.reshape(shp)))
-        return ar.rnd(torch.cat([e + t, e - t], dim=ax))
-    if get_round_backend(z) == "kernel":
-        u_re, u_im, v_re, v_im = posit_butterfly(
-            e[0].contiguous(), e[1].contiguous(), o[0].contiguous(),
-            o[1].contiguous(), wr.reshape(shp), wi.reshape(shp), ar.fmt)
-        return torch.stack([torch.cat([u_re, v_re], dim=ax),
-                            torch.cat([u_im, v_im], dim=ax)])
-    rnd = ar.rnd
-    # [wr·o_re, wi·o_im] = [wr, wi]⊙o and [wi·o_re, wr·o_im] = [wi, wr]⊙o,
-    # so P = [P0, P1, P3, P2] (f32 addition commutes bitwise)
-    shp = (2, *([1] * nb), -1, 1) if tr else (2, *([1] * nb), 1, -1)
-    w2 = torch.stack([wr, wi]).reshape(shp)
-    w2f = torch.stack([wi, wr]).reshape(shp)
-    P = rnd(torch.cat([w2 * o, w2f * o], dim=0))
-    t = rnd(torch.stack([P[0] - P[1], P[3] + P[2]]))
-    return rnd(torch.cat([e + t, e - t], dim=ax))
+    t = torch.stack(_twiddle_mul(ar, o[0], o[1], wr.reshape(shp),
+                                 wi.reshape(shp)))
+    return ar.rnd(torch.cat([e + t, e - t], dim=-2 if tr else -1))
+
+
+def _fused_stages(ar: Arith, z: torch.Tensor, plan: FFTPlan, s0: int,
+                  s1: int) -> Tuple[torch.Tensor, bool]:
+    """Stages ``s0 .. s1-1`` of the fused loop on ``z`` held transposed:
+    returns the state after them and whether it is still transposed.
+    Quire off, the range is one ``posit_fft_stages`` call under the kernel
+    backend and its plain stage loop under the others."""
+    if not ar.quire:
+        if get_round_backend(z) == "kernel":
+            return posit_fft_stages(z, plan.table, s0, s1, ar.fmt)
+        return posit_fft_stages_torch(z, plan.table, s0, s1, ar.fmt,
+                                      ar.rnd)
+    tr = True
+    for s in range(s0, s1):
+        R = plan.n >> s
+        if tr and R // 2 < MIN_RUN:
+            z = z.transpose(-1, -2)
+            tr = False
+        z = _quire_stage(ar, z, *plan.stages[s], R, tr)
+    return z, tr
 
 
 def _fused_final_rstage(ar: Arith, z: torch.Tensor, plan: FFTPlan
@@ -184,13 +193,7 @@ def fft_format(ar: Arith, re: torch.Tensor, im: torch.Tensor
     if not (get_fused_kernels() and ar.is_posit):
         return _fft_unfused(ar, re, im, plan)
     z = ar.rnd(torch.stack([re, im]))[..., None, :]  # (2, ..., L=1, n)
-    tr = True
-    for t, (wr, wi) in enumerate(plan.stages):
-        R = n >> t
-        if tr and R // 2 < _MIN_RUN:
-            z = z.transpose(-1, -2)
-            tr = False
-        z = _fused_stage(ar, z, wr, wi, R, tr)
+    z, tr = _fused_stages(ar, z, plan, 0, plan.levels)
     if tr:
         z = z.transpose(-1, -2)                      # (2, ..., 1, n)
     z = z.reshape(2, *z.shape[1:-2], n)
@@ -206,7 +209,7 @@ def _fft_unfused(ar: Arith, re: torch.Tensor, im: torch.Tensor,
     tr = True
     for t, (wr, wi) in enumerate(plan.stages):
         R = n >> t
-        if tr and R // 2 < _MIN_RUN:
+        if tr and R // 2 < MIN_RUN:
             zr, zi = _to_natural(zr, zi, tr)
             tr = False
         e_re, e_im, o_re, o_im = _stage_split(zr, zi, R, tr)
@@ -235,11 +238,11 @@ def rfft_format(ar: Arith, x: torch.Tensor
 
 def _rfft_fused(ar: Arith, x: torch.Tensor, plan: FFTPlan
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stacked one-launch-per-stage realization of the posit rfft split —
-    bit-identical to ``_rfft_unfused``."""
+    """Stacked realization of the posit rfft split (the middle stages one
+    kernel launch under the kernel backend) — bit-identical to
+    ``_rfft_unfused``."""
     n = x.shape[-1]
     rnd = ar.rnd
-    tr = True
     zr = rnd(x)[..., None, :]              # transposed start: (..., 1, n)
     # stage 1: pure real add/sub butterfly, join fused into the rounding
     e, o = zr[..., : n // 2], zr[..., n // 2:]
@@ -251,12 +254,7 @@ def _rfft_fused(ar: Arith, x: torch.Tensor, plan: FFTPlan
     t = rnd(torch.stack([wr * o, wi * o]))
     z = torch.stack([rnd(torch.cat([e + t[0], e - t[0]], dim=-2)),
                      torch.cat([t[1], -t[1]], dim=-2)])
-    for s in range(2, plan.levels - 1):
-        R = n >> s
-        if tr and R // 2 < _MIN_RUN:
-            z = z.transpose(-1, -2)
-            tr = False
-        z = _fused_stage(ar, z, *plan.stages[s], R, tr)
+    z, tr = _fused_stages(ar, z, plan, 2, plan.levels - 1)
     if tr:
         z = z.transpose(-1, -2)
     return _fused_final_rstage(ar, z, plan)
@@ -288,7 +286,7 @@ def _rfft_unfused(ar: Arith, x: torch.Tensor, plan: FFTPlan
         start = 0
     for s in range(start, plan.levels - 1):
         R = n >> s
-        if tr and R // 2 < _MIN_RUN:
+        if tr and R // 2 < MIN_RUN:
             zr, zi = _to_natural(zr, zi, tr)
             tr = False
         wr, wi = plan.stages[s]

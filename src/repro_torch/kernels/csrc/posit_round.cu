@@ -27,12 +27,21 @@
 // stage's twiddles, so the wrapper passes the plan's 1-D tables as they
 // are and never expands them to the plane's size.
 //
-// The multiply-add reads its three operands through broadcast strides
-// (stride 0 along a broadcast axis), so a scalar or a row broadcast against
-// a plane is read in place, never expanded in device memory; operands that
-// already have the output's shape take a flat path with no index
-// arithmetic.  Bound: memory, 16 bytes per f32 element with all three
-// operands full size.
+// The multiply-add (bound: memory, 16 bytes per f32 element with all three
+// operands full size) has two paths.  Flat, where every operand is either
+// contiguous in the output's shape or 0-d: 16-byte loads, split into a
+// head, whole vectors and a tail as the round's by the operands' common
+// offset within 16 bytes, the results stored 16 bytes at a time where the
+// output shares that offset and one value at a time where not; one value a
+// thread where the operands differ in 16-byte alignment.  Broadcast
+// otherwise: each operand read through its strides over the output's
+// dimensions (stride 0 along a broadcast axis), after the wrapper has
+// merged the dimensions that are contiguous for all three; 32-bit indices
+// where the output and every operand's reach stay below 2^31 elements.  A 0-d operand from the host comes by value (a null
+// pointer beside it) and is never copied to the card.  Most calls are
+// short, so the wrapper (kernels/posit_round.py) keeps its host path
+// short: entry points bound once, the stream read as a raw handle, the
+// geometry built only for the broadcast path.
 //
 // Build with -fmad=false: every product is rounded on its own before the
 // add that follows, as in the reference; a contraction would change bits.
@@ -42,12 +51,12 @@
 
 constexpr int kMaxDims = 8;
 
-// Output shape and each operand's element strides over it; nd == 0 means
-// every operand is contiguous in the output's shape.
+// Output shape and each operand's element strides over it, in index type I.
+template <typename I>
 struct Bcast {
   int nd;
-  long long shape[kMaxDims];
-  long long stride[3][kMaxDims];
+  I shape[kMaxDims];
+  I stride[3][kMaxDims];
 };
 
 __device__ __forceinline__ float mul_rn(float a, float b) {
@@ -72,6 +81,7 @@ template <> struct Vec16<float> {
                        round_posit_math(a.z, n, es),
                        round_posit_math(a.w, n, es));
   }
+  __device__ static V splat(float v) { return make_float4(v, v, v, v); }
 };
 template <> struct Vec16<double> {
   using V = double2;
@@ -79,6 +89,7 @@ template <> struct Vec16<double> {
     return make_double2(round_posit_math(a.x, n, es),
                         round_posit_math(a.y, n, es));
   }
+  __device__ static V splat(double v) { return make_double2(v, v); }
 };
 
 // The plan's head and tail one element per thread (of the first head +
@@ -113,29 +124,87 @@ __global__ void posit_round_kernel(const T* __restrict__ x,
 }
 
 template <typename T>
-__global__ void posit_fma_round_kernel(const T* __restrict__ a,
-                                       const T* __restrict__ b,
-                                       const T* __restrict__ c,
-                                       T* __restrict__ y, long long n,
-                                       Bcast g, int nbits, int es) {
+__device__ __forceinline__ T fma_round(T a, T b, T c, int nbits, int es) {
+  return round_posit_math<T>(add_rn(mul_rn(a, b), c), nbits, es);
+}
+
+// A multiply-add operand: a pointer, or a 0-d value where it is null.
+template <typename T>
+struct Operand {
+  const T* p;
+  T v;
+  template <typename I>
+  __device__ __forceinline__ T at(I i) const { return p ? __ldg(p + i) : v; }
+  __device__ __forceinline__ typename Vec16<T>::V vec(long long i) const {
+    using V = typename Vec16<T>::V;
+    return p ? __ldg(reinterpret_cast<const V*>(p + i)) : Vec16<T>::splat(v);
+  }
+};
+
+// Flat path: kVec, the plan's head and tail one value per thread (of the
+// first head + tail threads) and its n_vec 16-byte vectors of the operands
+// in a grid-stride loop, each vector's results stored whole (kVecStore,
+// where y is 16-byte aligned at the vectors) or one value at a time;
+// otherwise (head = n) every value one a thread, grid-stride.
+template <typename T, bool kVec, bool kVecStore>
+__global__ void posit_fma_round_flat_kernel(Operand<T> a, Operand<T> b,
+                                            Operand<T> c, T* __restrict__ y,
+                                            long long head, long long n_vec,
+                                            long long tail, int nbits,
+                                            int es) {
+  using V = typename Vec16<T>::V;
+  constexpr int kPer = 16 / sizeof(T);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    long long oa = i, ob = i, oc = i;
-    if (g.nd > 0) {
-      oa = ob = oc = 0;
-      long long rest = i;
-      for (int d = g.nd - 1; d >= 0; --d) {
-        const long long idx = rest % g.shape[d];
-        rest /= g.shape[d];
-        oa += idx * g.stride[0][d];
-        ob += idx * g.stride[1][d];
-        oc += idx * g.stride[2][d];
+  const long long t0 =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if constexpr (!kVec) {
+    for (long long i = t0; i < head; i += stride)
+      y[i] = fma_round(a.at(i), b.at(i), c.at(i), nbits, es);
+  } else {
+    if (t0 < head + tail) {
+      const long long i = t0 < head ? t0 : head + n_vec * kPer + (t0 - head);
+      y[i] = fma_round(a.at(i), b.at(i), c.at(i), nbits, es);
+    }
+    for (long long v = t0; v < n_vec; v += stride) {
+      const long long i = head + v * kPer;
+      const V va = a.vec(i), vb = b.vec(i), vc = c.vec(i);
+      const T* ea = reinterpret_cast<const T*>(&va);
+      const T* eb = reinterpret_cast<const T*>(&vb);
+      const T* ec = reinterpret_cast<const T*>(&vc);
+      V r;
+      T* er = reinterpret_cast<T*>(&r);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k)
+        er[k] = fma_round(ea[k], eb[k], ec[k], nbits, es);
+      if constexpr (kVecStore) {
+        *reinterpret_cast<V*>(y + i) = r;
+      } else {
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) y[i + k] = er[k];
       }
     }
-    y[i] = round_posit_math<T>(add_rn(mul_rn(a[oa], b[ob]), c[oc]), nbits,
-                               es);
+  }
+}
+
+// Broadcast path over the merged geometry, index type I (unsigned below
+// 2^31 elements, so i + stride never wraps).
+template <typename T, typename I>
+__global__ void posit_fma_round_bcast_kernel(Operand<T> a, Operand<T> b,
+                                             Operand<T> c, T* __restrict__ y,
+                                             I n, Bcast<I> g, int nbits,
+                                             int es) {
+  const I stride = static_cast<I>(gridDim.x) * blockDim.x;
+  for (I i = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    I oa = 0, ob = 0, oc = 0, rest = i;
+    for (int d = g.nd - 1; d >= 0; --d) {
+      const I idx = rest % g.shape[d];
+      rest /= g.shape[d];
+      oa += idx * g.stride[0][d];
+      ob += idx * g.stride[1][d];
+      oc += idx * g.stride[2][d];
+    }
+    y[i] = fma_round(a.at(oa), b.at(ob), c.at(oc), nbits, es);
   }
 }
 
@@ -196,24 +265,82 @@ int launch_round(const T* x, T* y, long long n, int nbits, int es,
              : launch_round_as<T, false>(x, y, p, nbits, es, st);
 }
 
-// geom: nd, then the output shape, then the three operands' strides,
-// each kMaxDims long (unused tail entries ignored).
-template <typename T>
-int launch_fma(const T* a, const T* b, const T* c, T* y, long long n,
-               const long long* geom, int nbits, int es, void* stream) {
-  Bcast g;
-  g.nd = static_cast<int>(geom[0]);
-  if (g.nd < 0 || g.nd > kMaxDims)
-    return static_cast<int>(cudaErrorInvalidValue);
-  for (int d = 0; d < kMaxDims; ++d) {
-    g.shape[d] = geom[1 + d];
-    for (int k = 0; k < 3; ++k)
-      g.stride[k][d] = geom[1 + (k + 1) * kMaxDims + d];
-  }
-  posit_fma_round_kernel<T><<<grid_for(n, kThreads), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      a, b, c, y, n, g, nbits, es);
+template <typename T, bool kVec, bool kVecStore>
+int launch_fma_flat_as(Operand<T> a, Operand<T> b, Operand<T> c, T* y,
+                       const VecPlan& p, int nbits, int es,
+                       cudaStream_t stream) {
+  constexpr auto kernel = posit_fma_round_flat_kernel<T, kVec, kVecStore>;
+  const long long work = p.n_vec > p.head + p.tail ? p.n_vec
+                                                    : p.head + p.tail;
+  kernel<<<wave_blocks<kernel>(kThreads, 0, work), kThreads, 0, stream>>>(
+      a, b, c, y, p.head, p.n_vec, p.tail, nbits, es);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename I>
+int launch_fma_bcast(Operand<T> a, Operand<T> b, Operand<T> c, T* y,
+                     long long n, const long long* geom, int nbits, int es,
+                     cudaStream_t stream) {
+  Bcast<I> g;
+  g.nd = static_cast<int>(geom[0]);
+  for (int d = 0; d < kMaxDims; ++d) {
+    g.shape[d] = static_cast<I>(geom[1 + d]);
+    for (int k = 0; k < 3; ++k)
+      g.stride[k][d] = static_cast<I>(geom[1 + (k + 1) * kMaxDims + d]);
+  }
+  constexpr auto kernel = posit_fma_round_bcast_kernel<T, I>;
+  kernel<<<wave_blocks<kernel>(kThreads, 0, n), kThreads, 0, stream>>>(
+      a, b, c, y, static_cast<I>(n), g, nbits, es);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a, b, c: pointers, each null where its operand is 0-d and comes by value
+// (sa, sb, sc).  geom null: the flat path; else nd, the output shape and
+// the three operands' strides, each kMaxDims long (unused entries
+// ignored).
+template <typename T>
+int launch_fma(const T* a, const T* b, const T* c, T sa, T sb, T sc, T* y,
+               long long n, const long long* geom, int nbits, int es,
+               void* stream) {
+  const Operand<T> oa{a, sa}, ob{b, sb}, oc{c, sc};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (geom != nullptr) {
+    const int nd = static_cast<int>(geom[0]);
+    if (nd < 0 || nd > kMaxDims)
+      return static_cast<int>(cudaErrorInvalidValue);
+    // 32-bit indices where every index and every operand offset fits
+    long long span = n;
+    for (int k = 0; k < 3; ++k) {
+      long long last = 0;
+      for (int d = 0; d < nd; ++d)
+        last += (geom[1 + d] - 1) * geom[1 + (k + 1) * kMaxDims + d];
+      span = last + 1 > span ? last + 1 : span;
+    }
+    return span < (1ll << 31)
+               ? launch_fma_bcast<T, unsigned>(oa, ob, oc, y, n, geom, nbits,
+                                               es, st)
+               : launch_fma_bcast<T, long long>(oa, ob, oc, y, n, geom,
+                                                nbits, es, st);
+  }
+  // vectors where the operands read through pointers share one offset
+  // within 16 bytes (the plan's head from it), stored whole where y has
+  // that offset too
+  const T* ref = a ? a : (b ? b : (c ? c : y));
+  const uintptr_t mis = reinterpret_cast<uintptr_t>(ref) % 16;
+  auto alike = [mis](const T* q) {
+    return q == nullptr || reinterpret_cast<uintptr_t>(q) % 16 == mis;
+  };
+  constexpr int kPer = 16 / sizeof(T);
+  const VecPlan p = vec_plan(ref, n, sizeof(T), kPer);
+  if (alike(a) && alike(b) && alike(c) && mis % sizeof(T) == 0 &&
+      p.n_vec > 0)
+    return vec_store_ok(y, p.head, sizeof(T), kPer)
+               ? launch_fma_flat_as<T, true, true>(oa, ob, oc, y, p, nbits,
+                                                   es, st)
+               : launch_fma_flat_as<T, true, false>(oa, ob, oc, y, p, nbits,
+                                                    es, st);
+  return launch_fma_flat_as<T, false, false>(oa, ob, oc, y, VecPlan{n, 0, 0},
+                                             nbits, es, st);
 }
 
 template <typename T>
@@ -249,15 +376,19 @@ int posit_round_f64(const double* x, double* y, long long n, int nbits,
 }
 
 int posit_fma_round_f32(const float* a, const float* b, const float* c,
-                        float* y, long long n, const long long* geom,
-                        int nbits, int es, void* stream) {
-  return launch_fma<float>(a, b, c, y, n, geom, nbits, es, stream);
+                        float sa, float sb, float sc, float* y, long long n,
+                        const long long* geom, int nbits, int es,
+                        void* stream) {
+  return launch_fma<float>(a, b, c, sa, sb, sc, y, n, geom, nbits, es,
+                           stream);
 }
 
 int posit_fma_round_f64(const double* a, const double* b, const double* c,
-                        double* y, long long n, const long long* geom,
-                        int nbits, int es, void* stream) {
-  return launch_fma<double>(a, b, c, y, n, geom, nbits, es, stream);
+                        double sa, double sb, double sc, double* y,
+                        long long n, const long long* geom, int nbits, int es,
+                        void* stream) {
+  return launch_fma<double>(a, b, c, sa, sb, sc, y, n, geom, nbits, es,
+                            stream);
 }
 
 int posit_butterfly_f32(const float* er, const float* ei, const float* o_r,

@@ -8,8 +8,9 @@ plain torch versions.
   computed in the float type and one posit rounding at the end, operands
   broadcast.  Replaces ``posit_fma_round_2d``.
 * ``posit_butterfly`` — the radix-2 DIT butterfly with all ten ops rounded:
-  t = w ⊗ o (4 mul + 2 add), u = e + t, v = e − t.  One launch per FFT
-  stage over the whole plane.  Replaces ``posit_butterfly_2d``.
+  t = w ⊗ o (4 mul + 2 add), u = e + t, v = e − t, over whole planes.
+  Replaces ``posit_butterfly_2d`` stage by stage; the FFT path runs a
+  range of stages in one launch instead (``kernels/posit_fft.py``).
 
 A wrapper given CUDA tensors launches its kernel (``csrc/posit_round.cu``)
 or raises; given CPU tensors it runs the plain version beside it.  Each
@@ -30,9 +31,12 @@ from . import build
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SCALAR = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
 _lib = None
-# the round's entry points by dtype, bound once with the library
+# the round's and the multiply-add's entry points by dtype, bound once with
+# the library
 _round_fns: Dict[torch.dtype, Callable[..., int]] = {}
+_fma_fns: Dict[torch.dtype, Callable[..., int]] = {}
 
 
 def _kernels() -> ctypes.CDLL:
@@ -45,8 +49,10 @@ def _kernels() -> ctypes.CDLL:
             f.restype = _I
             _round_fns[dtype] = f
             f = getattr(lib, f"posit_fma_round_{sfx}")
-            f.argtypes = [_P] * 4 + [_LL, ctypes.POINTER(_LL), _I, _I, _P]
+            f.argtypes = ([_P] * 3 + [_SCALAR[dtype]] * 3
+                          + [_P, _LL, ctypes.POINTER(_LL), _I, _I, _P])
             f.restype = _I
+            _fma_fns[dtype] = f
             f = getattr(lib, f"posit_butterfly_{sfx}")
             f.argtypes = [_P] * 10 + [_LL, _LL, _LL, _I, _I, _P]
             f.restype = _I
@@ -128,42 +134,113 @@ def posit_fma_round_torch(a, b, c, fmt: PositFormat) -> torch.Tensor:
     return round_posit_math(a * b + c, fmt)
 
 
+def fma_geometry(shape: Tuple[int, ...], strides: Tuple[Tuple[int, ...], ...]
+                 ) -> Tuple[Tuple[int, ...], Tuple[Tuple[int, ...], ...]]:
+    """The broadcast path's geometry: ``shape`` and each operand's element
+    strides over it with the size-1 dimensions dropped and each pair of
+    adjacent dimensions merged where every operand's outer stride is its
+    inner stride times the inner size (a broadcast axis beside another
+    merges: 0 = 0 · size).  Maps every output index to the same offsets."""
+    dims = []
+    for d, size in enumerate(shape):
+        if size == 1:
+            continue
+        st = [s[d] for s in strides]
+        if dims and all(o == i * size for o, i in zip(dims[-1][1], st)):
+            dims[-1] = (dims[-1][0] * size, st)
+        else:
+            dims.append((size, st))
+    return (tuple(size for size, _ in dims),
+            tuple(tuple(st[k] for _, st in dims)
+                  for k in range(len(strides))))
+
+
+def scalar_value(t: torch.Tensor, dtype: torch.dtype) -> float:
+    """A host 0-d operand's value after promotion to the output ``dtype``:
+    the multiply-add kernel's by-value argument (exact in its C type)."""
+    return (t.to(dtype) if t.dtype != dtype else t).item()
+
+
+def _broadcast_geometry(ops):
+    """(output shape, the kernel's geometry array) of the broadcast path
+    for the operands ``ops``, None where one goes by value: the shapes
+    broadcast as ``torch.broadcast_shapes`` does (whose error a mismatch
+    raises), each operand's strides as ``expand``'s, then merged."""
+    full = [t for t in ops if t is not None]
+    nd = max(t.dim() for t in full)
+    shape = [1] * nd
+    for t in full:
+        for d, size in enumerate(t.shape, nd - t.dim()):
+            if size != 1 and shape[d] != size:
+                if shape[d] != 1:
+                    torch.broadcast_shapes(*(t.shape for t in full))
+                shape[d] = size
+    strides = []
+    for t in ops:
+        st = [0] * nd
+        if t is not None:
+            for d, size, s in zip(range(nd - t.dim(), nd), t.shape,
+                                  t.stride()):
+                if size == shape[d]:
+                    st[d] = s
+        strides.append(tuple(st))
+    dims, strides = fma_geometry(tuple(shape), tuple(strides))
+    if len(dims) > _MAX_DIMS:
+        raise ValueError(f"posit_fma_round: at most {_MAX_DIMS} dims after "
+                         f"merging, got {len(dims)}")
+    pad = [0] * (_MAX_DIMS - len(dims))
+    g = [len(dims), *dims, *pad]
+    for st in strides:
+        g += [*st, *pad]
+    return torch.Size(shape), (_LL * len(g))(*g)
+
+
 def posit_fma_round(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                     fmt: PositFormat) -> torch.Tensor:
     """``round(a·b + c)`` over the broadcast of the three operands (f32 or
     f64, promoted to one dtype).  A 0-d operand on the CPU counts as a
-    scalar and joins the others on the card."""
-    ops = (a, b, c)
-    if all(t.device.type == "cpu" for t in ops):
+    scalar and goes to the kernel by value."""
+    if not (a.is_cuda or b.is_cuda or c.is_cuda):
         return posit_fma_round_torch(a, b, c, fmt)
-    dev = next(t.device for t in ops if t.is_cuda)
-    dtype = torch.promote_types(torch.result_type(a, b), c.dtype)
-    ops = tuple(t.to(device=dev, dtype=dtype) if t.dim() == 0 else
-                t.to(dtype) for t in ops)
-    for t in ops:
+    dtype = a.dtype
+    if b.dtype != dtype or c.dtype != dtype:
+        dtype = torch.promote_types(torch.result_type(a, b), c.dtype)
+    fn = _fma_fns.get(dtype)
+    if fn is None:
+        if dtype not in _SUFFIX:
+            raise TypeError(f"posit_fma_round: float32/float64 only, got "
+                            f"{dtype}")
+        _kernels()
+        fn = _fma_fns[dtype]
+    ops, vals, full = [], [], []
+    for t in (a, b, c):
+        if t.dim() == 0 and not t.is_cuda:
+            ops.append(None)            # by value: never copied to the card
+            vals.append(scalar_value(t, dtype))
+            continue
         if not t.is_cuda:
             raise ValueError(f"posit_fma_round: tensors must all be on the "
                              f"card (got {t.device})")
-    if dtype not in _SUFFIX:
-        raise TypeError(f"posit_fma_round: float32/float64 only, got {dtype}")
-    shape = torch.broadcast_shapes(*(t.shape for t in ops))
-    if len(shape) > _MAX_DIMS:
-        raise ValueError(f"posit_fma_round: at most {_MAX_DIMS} dims")
-    out = torch.empty(shape, dtype=dtype, device=dev)
+        if t.dtype != dtype:
+            t = t.to(dtype)
+        ops.append(t)
+        vals.append(0.0)
+        full.append(t)
+    first = full[0]
+    if all(t.shape == first.shape and t.is_contiguous() for t in full):
+        out, geom = torch.empty_like(first), None
+    else:
+        shape, geom = _broadcast_geometry(ops)
+        out = torch.empty(shape, dtype=dtype, device=first.device)
     n = out.numel()
-    if n:
-        flat = all(t.shape == shape and t.is_contiguous() for t in ops)
-        views = [t.expand(shape) for t in ops]
-        pad = [0] * (_MAX_DIMS - len(shape))
-        geom = [0 if flat else len(shape), *shape, *pad]
-        for v in views:
-            geom += [*v.stride(), *pad]
-        fn = getattr(_kernels(), f"posit_fma_round_{_SUFFIX[dtype]}")
-        _raise_on(fn(*(v.data_ptr() for v in views), out.data_ptr(), n,
-                     (_LL * len(geom))(*geom), fmt.n, fmt.es,
-                     torch.cuda.current_stream(dev).cuda_stream),
-                  "posit_fma_round")
-        posit_fma_round.launches += 1
+    if not n:
+        return out
+    rc = fn(*(None if t is None else t.data_ptr() for t in ops), *vals,
+            out.data_ptr(), n, geom, fmt.n, fmt.es,
+            torch._C._cuda_getCurrentRawStream(first.get_device()))
+    if rc:
+        _raise_on(rc, "posit_fma_round")
+    posit_fma_round.launches += 1
     return out
 
 

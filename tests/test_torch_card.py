@@ -12,7 +12,11 @@ every decode container and both output types, and the card-built decode
 tables against their plain version; the KV-attention at 48 query rows
 per KV head; the KV append bitwise in its three modes, positions it does
 not write untouched; the rounded matmul at the main path's shapes, ragged
-ones and in f64, the same bits on every call.
+ones and in f64, the same bits on every call; the FFT stage-range kernel
+bitwise at the cough path's middle stages, whole FFTs of 4096 and 256
+points (two passes, an odd batch) and in f64, one launch per pass; the
+multiply-add at every element offset within 16 bytes, under row, column
+and host 0-d broadcasts.
 """
 import numpy as np
 import pytest
@@ -448,6 +452,96 @@ def test_fma_kernel_bitwise(name, dtype, dev):
     for x, y, z in cases:
         k = posit_fma_round(x.to(dev), y.to(dev), z.to(dev), fmt).cpu()
         assert _equal_bits(k, posit_fma_round_torch(x, y, z, fmt))
+
+
+@pytest.mark.parametrize("case", [
+    ("posit16", 4096, 2, 11, (32, 2), torch.float32),   # the cough path
+    ("posit10", 4096, 0, 12, (3,), torch.float32),      # a whole FFT
+    ("posit8", 4096, 0, 12, (2, 2), torch.float32),
+    ("posit10", 256, 0, 8, (3,), torch.float32),        # two passes, odd
+    ("posit8", 256, 0, 8, (5,), torch.float32),
+    ("posit16", 4096, 2, 11, (3,), torch.float64),
+])
+def test_fft_stages_kernel_bitwise(case, dev):
+    from repro_torch.apps.dsp import get_fft_plan
+    from repro_torch.kernels.posit_fft import (fft_pass_plan,
+                                               posit_fft_stages,
+                                               posit_fft_stages_torch)
+    name, n, s0, s1, batch, dtype = case
+    fmt = get_format(name)
+    g = torch.Generator().manual_seed(s1 + n)
+    L, R = 1 << s0, n >> s0
+    z = posit_round_torch(torch.randn(2, *batch, L, R, generator=g,
+                                      dtype=dtype) * 1e3, fmt)
+    plan = get_fft_plan(n, name, dtype, "cpu")
+    want, tr = posit_fft_stages_torch(z, plan.table, s0, s1, fmt)
+    card = get_fft_plan(n, name, dtype, str(dev))
+    before = posit_fft_stages.launches
+    got, tr_k = posit_fft_stages(z.to(dev), card.table, s0, s1, fmt)
+    passes = fft_pass_plan(n, s0, s1, z[0].numel() // n, dtype,
+                           torch.cuda.get_device_properties(dev)
+                           .multi_processor_count)
+    assert posit_fft_stages.launches - before == len(passes)
+    assert tr_k == tr and got.shape == want.shape and got.is_contiguous()
+    assert _equal_bits(got.cpu(), want)
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_fft_path_runs_one_stage_range_launch(full, dev):
+    """The FFT path under the kernel backend: one stage-range launch for
+    the rfft's middle stages, one a pass of the plan for a whole FFT, no
+    butterfly launch, the same bits as the CPU."""
+    from repro_torch.apps import dsp
+    from repro_torch.kernels.posit_fft import fft_pass_plan, posit_fft_stages
+    ar = Arith.make("posit16")
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn(32, 2, 4096 if not full else 256, generator=g) * 300
+    counts = (posit_fft_stages.launches, posit_butterfly.launches)
+    if full:
+        got = dsp.fft_format(ar, x.to(dev), torch.zeros_like(x).to(dev))
+        want = dsp.fft_format(ar, x, torch.zeros_like(x))
+    else:
+        got, want = dsp.rfft_format(ar, x.to(dev)), dsp.rfft_format(ar, x)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    passes = len(fft_pass_plan(256, 0, 8, 64, torch.float32, sms)) if full \
+        else 1
+    assert posit_fft_stages.launches - counts[0] == passes
+    assert posit_butterfly.launches == counts[1]
+    for k, p in zip(got, want):
+        assert _equal_bits(k.cpu(), p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fma_kernel_offsets_and_broadcasts(dtype, dev):
+    """The flat path at every element offset within 16 bytes (the three
+    operands alike: 16-byte loads with a head and a tail, the results
+    stored one value at a time where the output is not at their offset;
+    unlike: one value a thread), ragged lengths, and the broadcast path
+    under row, column and host 0-d operands, bitwise equal to the plain
+    version."""
+    from repro_torch.kernels.posit_round import (posit_fma_round,
+                                                 posit_fma_round_torch)
+    fmt = get_format("posit10")
+    g = torch.Generator().manual_seed(9)
+    base = [torch.randn(70000, generator=g, dtype=dtype) * 41
+            for _ in range(3)]
+    on = [t.to(dev) for t in base]
+    per = 16 // base[0].element_size()
+    cases = [((off, off, off), m) for off in range(per)
+             for m in (1, per + 1, 4099, 65537)]
+    cases += [((0, off, (2 * off) % per), 40001) for off in range(1, per)]
+    for offs, m in cases:
+        k = posit_fma_round(*(t[o:o + m] for t, o in zip(on, offs)), fmt)
+        p = posit_fma_round_torch(*(t[o:o + m] for t, o in zip(base, offs)),
+                                  fmt)
+        assert _equal_bits(k.cpu(), p), (offs, m)
+    a, b, c = (t[:64 * 96].reshape(64, 96) for t in base)
+    s = torch.tensor(0.375, dtype=dtype)
+    for ops in ((a, b[:1], c), (a[:, :1], b, c[:1]), (a, s, c), (s, b, s),
+                (a[:, :1], b[:1], s), (a.T, b.T, c.T)):
+        k = posit_fma_round(*(t if t.dim() == 0 else t.to(dev)
+                              for t in ops), fmt)
+        assert _equal_bits(k.cpu(), posit_fma_round_torch(*ops, fmt))
 
 
 @pytest.mark.parametrize("name", ["posit8", "posit16"])

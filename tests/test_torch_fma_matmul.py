@@ -29,8 +29,11 @@ from repro_torch.core.formats import get_format
 from repro_torch.core.quire import quire_matmul_ref
 from repro_torch.kernels import ops
 from repro_torch.kernels.posit_matmul import posit_matmul, posit_matmul_torch
-from repro_torch.kernels.posit_round import (posit_fma_round,
-                                             posit_fma_round_torch)
+from repro_torch.kernels.posit_round import (_MAX_DIMS, _SCALAR,
+                                             _broadcast_geometry,
+                                             posit_fma_round,
+                                             posit_fma_round_torch,
+                                             scalar_value)
 
 
 def _bits(a):
@@ -100,6 +103,78 @@ def test_arith_fma_under_every_round_backend(name, backend):
     np.testing.assert_array_equal(_bits(got), _bits(want))
     np.testing.assert_array_equal(_bits(scalar), _bits(np.asarray(
         jarith.Arith.make(name).fma(jnp.asarray(a), 3.0, 0.5))))
+
+
+def _offsets(shape, strides, i):
+    """Each operand's element offset of output index ``i``."""
+    out = [0] * len(strides)
+    for d in range(len(shape) - 1, -1, -1):
+        i, idx = divmod(i, shape[d])
+        for k, st in enumerate(strides):
+            out[k] += idx * st[d]
+    return out
+
+
+@pytest.mark.parametrize("ops,nd", [
+    (((), (5, 7), ()), 1),                      # scalars around a plane
+    ((None, (5, 7), None), 1),                  # ... both by value
+    (((1, 130), (33, 1), ()), 2),               # a row against a column
+    (((33, 130), (33, 130), (1, 130)), 2),      # a row broadcast
+    (((2, 3, 4), (2, 3, 4), (3, 4)), 2),        # dims 1-2 merge, 0 does not
+    (((2, 3, 4), (2, 3, 4), (2, 3, 4)), 1),     # all merge
+    (((4, 1, 6), (1, 5, 1), (6,)), 3),          # nothing merges
+    (((3, 1, 1, 8), (3, 1, 1, 8), None), 1),    # size-1 dims dropped
+    (("view", (6, 4), (1, 4)), 2),              # a transposed view
+])
+def test_fma_geometry_maps_every_index_like_expand(ops, nd):
+    """The broadcast path's merged geometry (the array the kernel reads)
+    gives every output index the same operand offsets as ``expand``'s
+    strides over the full shape; an operand that goes by value (None)
+    reads no offset."""
+    ts = [None if o is None else torch.zeros(4, 6).T if o == "view"
+          else torch.zeros(o) for o in ops]
+    shape = tuple(torch.broadcast_shapes(*(t.shape for t in ts
+                                           if t is not None)))
+    full = tuple((0,) * len(shape) if t is None else t.expand(shape).stride()
+                 for t in ts)
+    out_shape, g = _broadcast_geometry(ts)
+    assert tuple(out_shape) == shape
+    g = list(g)
+    dims = g[1:1 + g[0]]
+    merged = [g[1 + (k + 1) * _MAX_DIMS:1 + (k + 1) * _MAX_DIMS + g[0]]
+              for k in range(3)]
+    assert g[0] == nd and np.prod(dims) == np.prod(shape)
+    for i in range(int(np.prod(shape))):
+        assert _offsets(dims, merged, i) == _offsets(shape, full, i), i
+
+
+def test_fma_geometry_refuses_shapes_that_do_not_broadcast():
+    """Shapes that do not broadcast raise ``torch.broadcast_shapes``'s own
+    error."""
+    with pytest.raises(RuntimeError):
+        _broadcast_geometry((torch.zeros(3, 4), torch.zeros(5, 4), None))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fma_host_scalar_by_value_gives_the_plain_bits(dtype):
+    """A 0-d operand on the CPU goes to the kernel as a C value after the
+    promotion to the output dtype: the value is exact in that C type and
+    the plain version on it gives the same bits as on the 0-d tensor."""
+    fmt = get_format("posit16")
+    rng = np.random.default_rng(8)
+    a = torch.from_numpy(rng.normal(0, 40, 4096)).to(dtype)
+    c = torch.from_numpy(rng.normal(0, 40, 4096)).to(dtype)
+    for s in (torch.tensor(0.1, dtype=torch.float64),
+              torch.tensor(-3.7, dtype=torch.float32),
+              torch.tensor(7, dtype=torch.int32)):
+        v = scalar_value(s, dtype)
+        assert _SCALAR[dtype](v).value == v == s.to(dtype).item()
+        want = posit_fma_round_torch(a, s.to(dtype), c, fmt)
+        got = posit_fma_round_torch(a, torch.tensor(v, dtype=dtype), c, fmt)
+        assert torch.equal(got.view(torch.int32 if dtype == torch.float32
+                                    else torch.int64),
+                           want.view(torch.int32 if dtype == torch.float32
+                                     else torch.int64))
 
 
 def _matmul_bits(fmt, M, K, N, seed=2):
