@@ -62,8 +62,9 @@ Phases, each fatal on failure:
      request completed once, the codec and KV-attention kernels launched
      (36 KV-attention launches per decode step, one KV append per layer
      and decode step or prefill, no encode launch while serving: the
-     weights are encoded at load), greedy tokens reproduced by a second
-     engine with eight of its steps under ``torch.profiler`` (the device's
+     weights are encoded at load), the engine's ``/metrics`` series
+     reconciling with its ``TokenLedger``, greedy tokens reproduced by a
+     second engine with eight of its steps under ``torch.profiler`` (the device's
      busy share and kernels per lane-step, the weight decode's device time
      per lane-step beside its byte bound), the serve run four times more
      in turns with the KV write through the append kernel and through the
@@ -73,7 +74,20 @@ Phases, each fatal on failure:
   6. the format study: R-peak F1 over nine formats and cough AUC over
      three on the card, the paper's orderings asserted, three formats'
      F1 card against CPU; the quickstart (one decode-fused matmul launch);
-     ``Arith.fma`` (one multiply-add launch per call).
+     ``Arith.fma`` (one multiply-add launch per call);
+  7. the ingest fleet: 64 patients (2 windows each, duplicated and
+     deferred frames, ``ecg-031`` silent after its first frame) in process
+     on one ``StreamEngine``, then over localhost TCP through
+     ``IngestServer`` and ``SessionManager`` on a fresh engine with a
+     ``Supervisor``, the ``/metrics`` scrape plane and a ``Tracer``: every
+     delivered window bitwise equal to the in-process run, ``ecg-031``
+     evicted with exactly its delivered prefix, no window dropped, the
+     round, FFT stage-range and rounded-matmul kernels launched and no
+     plain version called on a CUDA tensor, the page scraped over HTTP
+     reconciling exactly with the ledger and the telemetry, a valid Chrome
+     trace; windows/s in process and over TCP, latency percentiles and
+     the longest dispatch logged (the stall timeout is 5x that, at least
+     1 s).
 
 Phase 2 also holds the multiply-add bitwise and the decode-fused matmul
 within 1e-5 of its largest output against their plain versions (at the
@@ -144,6 +158,9 @@ PAPER_F1 = {"fp32": "0.989", "posit16": "0.989", "posit10": "0.975",
 PAPER_AUC = {"fp32": "0.919", "posit16": "0.876", "fp16": "0.763"}
 IEEE_FORMATS = ("fp16", "bfloat16", "fp8e5m2", "fp8e4m3")
 LOGIT_TOL = dict(rtol=2e-2, atol=2e-2)
+INGEST_WINDOWS = 2             # phase 7: windows per patient
+INGEST_MAX_BATCH = 16
+INGEST_STALLED = "ecg-031"     # silent after its first frame, evicted
 
 
 def log(msg: str) -> None:
@@ -1294,10 +1311,33 @@ def serve_requests(cfg):
 
 
 def serve_engine(model, params, dev):
+    from repro_torch.obs import MetricsRegistry
     from repro_torch.serve import ServeConfig, ServingEngine
     return ServingEngine(model, params, ServeConfig(
         batch_size=SERVE_BATCH, max_prompt=SERVE_MAX_PROMPT,
-        max_new_tokens=SERVE_NEW_TOKENS, seed=SEED), device=dev)
+        max_new_tokens=SERVE_NEW_TOKENS, seed=SEED), device=dev,
+        metrics=MetricsRegistry())
+
+
+def check_serve_metrics(engine, comps):
+    """The serve engine's rendered page reconciles exactly with its
+    ``TokenLedger`` summary (as tests/test_obs.py's serve test holds it),
+    and counts every completion once."""
+    from repro_torch.obs import parse_prometheus
+    got = parse_prometheus(engine.metrics.render_prometheus())
+    n = 0
+    for lane, row in engine.ledger.summary().items():
+        for k, v in row.items():
+            if got[(f"serve_{k}", (("lane", lane),))] != float(v):
+                raise AssertionError(f"/metrics serve_{k}{{{lane}}} differs "
+                                     f"from the TokenLedger")
+            n += 1
+    done = engine.metrics.counter("serve_completions_total").total()
+    if done != len(comps):
+        raise AssertionError(f"serve_completions_total {done}, "
+                             f"{len(comps)} completions")
+    log(f"  serve /metrics: {n} ledger series reconcile with the "
+        f"TokenLedger; {int(done)} completions counted")
 
 
 def submit_all(engine, reqs):
@@ -1377,6 +1417,7 @@ def run_serve(dev, cfg, counters):
     finally:
         attn.posit_kv_attention = real
     summary = engine.ledger.summary()
+    check_serve_metrics(engine, comps)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del engine
     gc.collect()
@@ -2259,6 +2300,296 @@ def time_serve_kernels(dev, report):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the ingest fleet over TCP and the observability plane
+# ---------------------------------------------------------------------------
+
+def ingest_fleet():
+    """The reference suite's TCP acceptance fleet
+    (tests/test_ingest.py:327-339):
+    64 patients, 2 windows each, duplicated and deferred frames, and
+    ``INGEST_STALLED`` silent after its first frame."""
+    from repro_torch.ingest import FleetSimulator
+    return FleetSimulator(n_patients=N_PATIENTS, windows=INGEST_WINDOWS,
+                          seed=SEED, mixed=True, dup_rate=0.05,
+                          defer_rate=0.05, stall_after={INGEST_STALLED: 1})
+
+
+class PlainCalls:
+    """Counts the calls of the stream kernels' plain versions (and of the
+    torch round backend) that are given a CUDA tensor, while entered: on
+    the card every one of them must be 0, so a kernel that quietly fell
+    back to its plain version cannot pass."""
+
+    def __init__(self):
+        from repro_torch.apps import dsp
+        from repro_torch.core import arith
+        from repro_torch.kernels import posit_fft, posit_matmul, posit_round
+        self.sites = [(posit_round, "posit_round_torch"),
+                      (arith, "round_to_posit"),
+                      (posit_fft, "posit_fft_stages_torch"),
+                      (dsp, "posit_fft_stages_torch"),
+                      (posit_matmul, "posit_matmul_round_torch")]
+        self.calls = {f"{m.__name__}.{n}": 0 for m, n in self.sites}
+        self._saved = []
+
+    def __enter__(self):
+        import torch
+        for mod, name in self.sites:
+            real = getattr(mod, name)
+            key = f"{mod.__name__}.{name}"
+
+            def counted(*a, _real=real, _key=key, **kw):
+                if any(isinstance(t, torch.Tensor) and t.is_cuda
+                       for t in (*a, *kw.values())):
+                    self.calls[_key] += 1
+                return _real(*a, **kw)
+            self._saved.append((mod, name, real))
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self._saved:
+            setattr(mod, name, real)
+        self._saved = []
+
+
+def timed_dispatch(engine):
+    """Record the host wall of each of ``engine``'s batch dispatches (each
+    ends on its outputs' host copy)."""
+    walls = []
+    real = engine._dispatch
+
+    def dispatch(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            walls.append(time.perf_counter() - t0)
+    engine._dispatch = dispatch
+    return walls
+
+
+def ingest_engine(pipelines, dev, **kw):
+    from repro_torch.stream import StreamEngine
+    return StreamEngine(pipelines, max_batch=INGEST_MAX_BATCH,
+                        pad_policy="max", result_capacity=None, device=dev,
+                        **kw)
+
+
+async def serve_fleet_tcp(engine, sim, sup, stall_timeout_s):
+    """Serve ``sim`` over localhost TCP until every session is closed (BYE
+    or stall eviction), the supervisor draining beside it; then scrape
+    ``/metrics`` and ``/telemetry`` over HTTP.  Returns the scraped page,
+    the telemetry document and the host-clock times at which the clients
+    finished sending, every live session closed and every session
+    closed."""
+    import asyncio
+    import json as _json
+    from repro_torch.ingest import IngestServer, SessionManager
+    from repro_torch.obs import http_get
+    sm = SessionManager(engine, stall_timeout_s=stall_timeout_s)
+    sim.pin_all(engine)
+    marks = {"start": time.perf_counter()}
+    async with IngestServer(sm, host="127.0.0.1", port=0, supervisor=sup,
+                            scrape_port=0) as srv:
+        done = [False]
+        pump = asyncio.ensure_future(sup.run_async(0.005,
+                                                   stop=lambda: done[0]))
+        await sim.run_tcp("127.0.0.1", srv.port)
+        marks["sent"] = time.perf_counter()
+        deadline = time.perf_counter() + 120.0
+        while not sm.all_closed():
+            if "live_closed" not in marks and all(
+                    s.closed for s in sm.sessions.values()
+                    if s.patient != INGEST_STALLED):
+                marks["live_closed"] = time.perf_counter()
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"ingest sessions never closed: "
+                                     f"{sm.open_sessions()}")
+            await asyncio.sleep(0.01)
+        marks["closed"] = time.perf_counter()
+        marks.setdefault("live_closed", marks["closed"])
+        done[0] = True
+        await pump
+        page = await http_get("127.0.0.1", srv.scrape_port, "/metrics")
+        tele = _json.loads(await http_get("127.0.0.1", srv.scrape_port,
+                                          "/telemetry"))
+    return page, tele, marks
+
+
+def run_ingest(dev, forest, counters):
+    """Phase 7: the fleet in process on one engine, then over TCP on a
+    fresh engine with a supervisor, the scrape plane and a tracer.  The
+    launch counts are read over the TCP run alone."""
+    import asyncio
+    from repro_torch.ingest import Supervisor
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.stream import cough_pipeline, rpeak_pipeline
+    pipelines = {"cough": cough_pipeline(forest), "rpeak": rpeak_pipeline()}
+    out = {}
+    with PlainCalls() as plain:
+        ref = ingest_engine(pipelines, dev)
+        walls = timed_dispatch(ref)
+        t0 = time.perf_counter()
+        ingest_fleet().run_inproc(ref)
+        out["inproc_s"] = time.perf_counter() - t0
+        out["longest_dispatch_s"] = max(walls)
+        out["stall_timeout_s"] = max(1.0, 5.0 * max(walls))
+        out["plain_inproc"] = dict(plain.calls)
+        for k in plain.calls:
+            plain.calls[k] = 0
+        tracer = Tracer(capacity=1 << 20)
+        eng = ingest_engine(pipelines, dev, metrics=MetricsRegistry(),
+                            tracer=tracer)
+        sup = Supervisor(eng, capacity=8192)
+        sim = ingest_fleet()
+        for c in counters:
+            c.launches = 0
+        page, tele, marks = asyncio.run(serve_fleet_tcp(
+            eng, sim, sup, out["stall_timeout_s"]))
+        out["launches"] = {c.__name__: c.launches for c in counters}
+        out["plain_tcp"] = dict(plain.calls)
+    out.update(ref=ref, eng=eng, sup=sup, sim=sim, page=page, tele=tele,
+               marks=marks, tracer=tracer)
+    return out
+
+
+def check_ingest(run, dev, card):
+    """Phase 7's asserts: the TCP run bitwise equal to the in-process run
+    for every delivered window, the stalled patient evicted with exactly
+    its delivered prefix, no window dropped, the stream kernels launched
+    and no plain version called on the card, the scraped page reconciling
+    exactly with the ledger, the transport column and the supervisor's
+    telemetry, a valid Chrome trace; then the rates and latencies."""
+    import numpy as np
+    from repro_torch.apps.bayeslope import detect_rpeaks
+    from repro_torch.core.arith import Arith
+    from repro_torch.data.biosignals import ECG_FS
+    from repro_torch.obs import parse_prometheus, validate_chrome_trace
+    from repro_torch.stream.pipelines import RPEAK_WINDOW_S
+    ref, eng, sup, sim = run["ref"], run["eng"], run["sup"], run["sim"]
+    if eng.drain() != 0:
+        raise AssertionError("windows were still pending after every "
+                             "ingest session closed")
+    sup.poll()
+    ts = eng.ledger.transport_summary()
+    fleet = ts["fleet"]
+    if not (fleet["dup_frames"] > 0 and fleet["reordered_frames"] > 0):
+        raise AssertionError(f"no fault reached the sessions: {fleet}")
+    if fleet["evictions"] != 1 or ts[INGEST_STALLED]["evictions"] != 1:
+        raise AssertionError(f"evictions {fleet['evictions']} (want 1, "
+                             f"{INGEST_STALLED})")
+    if fleet["windows_dropped"] != 0:
+        raise AssertionError(f"{fleet['windows_dropped']} windows dropped "
+                             f"at a close: a dispatch failed")
+    for name, n in {**run["plain_inproc"], **run["plain_tcp"]}.items():
+        if n:
+            raise AssertionError(f"{name} ran {n} times on CUDA tensors")
+    launches = run["launches"]
+    for name in ("posit_round", "posit_fft_stages", "posit_matmul_round"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the TCP run")
+    if launches["posit_butterfly"] != 0:
+        raise AssertionError(f"posit_butterfly launched "
+                             f"{launches['posit_butterfly']} times on the "
+                             f"TCP run")
+    # the page was scraped once every session had closed and the
+    # supervisor had drained: nothing has moved since
+    got = parse_prometheus(run["page"])
+    for group, row in eng.ledger.summary().items():
+        for k, v in row.items():
+            if got[(f"stream_{k}", (("group", group),))] != float(v):
+                raise AssertionError(f"/metrics stream_{k}{{{group}}} "
+                                     f"differs from the ledger")
+    for patient, cols in ts.items():
+        for field, v in cols.items():
+            key = ("ingest_transport", (("counter", field),
+                                        ("patient", patient)))
+            if got[key] != float(v):
+                raise AssertionError(f"/metrics ingest_transport "
+                                     f"{patient}/{field} differs")
+    tele = sup.telemetry()
+    windows = {dict(labels)["patient"]: v for (name, labels), v in got.items()
+               if name == "stream_windows_total"}
+    if not (got[("result_queue_depth", ())] == tele["queue"]["depth"]
+            and sum(windows.values()) == tele["queue"]["total_windows"]
+            == run["tele"]["queue"]["total_windows"]
+            and all(row["windows"] == windows[pid]
+                    for pid, row in tele["patients"].items())):
+        raise AssertionError("/metrics does not reconcile with the "
+                             "supervisor's telemetry")
+    ref_rows = {(r.patient, r.task, r.widx): r for r in ref.pop_results()}
+    n_checked = n_stalled = 0
+    for r in sup.pop():
+        want = ref_rows[(r.patient, r.task, r.widx)]
+        if r.fmt != want.fmt or set(r.outputs) != set(want.outputs):
+            raise AssertionError(f"{r.patient} w{r.widx}: {r.fmt} "
+                                 f"{sorted(r.outputs)} over TCP, "
+                                 f"{want.fmt} {sorted(want.outputs)} in "
+                                 f"process")
+        for k, v in r.outputs.items():
+            if not np.array_equal(np.asarray(v), np.asarray(want.outputs[k]),
+                                  equal_nan=True):
+                raise AssertionError(f"{r.patient} w{r.widx} {k}: TCP "
+                                     f"differs from the in-process run")
+        n_checked += 1
+        n_stalled += r.patient == INGEST_STALLED
+    plan = next(p for p in sim.plans if p.patient == INGEST_STALLED)
+    prefix = np.concatenate([c[0] for c in plan.chunks["ecg"][:1]])
+    w = int(round(RPEAK_WINDOW_S * ECG_FS))     # samples per R-peak window
+    if n_stalled != len(prefix) // w or \
+            n_checked != (N_PATIENTS - 1) * INGEST_WINDOWS + n_stalled \
+            or n_checked != tele["queue"]["total_windows"]:
+        raise AssertionError(f"{n_checked} windows over TCP, {n_stalled} of "
+                             f"{INGEST_STALLED}'s; its delivered prefix "
+                             f"holds {len(prefix) // w}")
+    for p in sim.plans:
+        if p.task == "rpeak" and p.patient != INGEST_STALLED:
+            if eng.tracker_for(p.patient, "rpeak").peaks != \
+                    ref.tracker_for(p.patient, "rpeak").peaks:
+                raise AssertionError(f"{p.patient}: R-peaks over TCP differ")
+    tr31 = eng.tracker_for(INGEST_STALLED, "rpeak")
+    got31 = tr31.peaks if tr31 is not None else []
+    n = (len(prefix) // w) * w
+    want31 = (detect_rpeaks(Arith.make(sim.pins.get(INGEST_STALLED,
+                                                    "posit10")),
+                            prefix[:n], device=dev) if n else [])
+    if got31 != want31:
+        raise AssertionError(f"{INGEST_STALLED}'s evicted prefix: peaks "
+                             f"{got31}, offline {want31}")
+
+    events = validate_chrome_trace(run["tracer"].chrome_trace())
+    cats = {e["cat"] for e in events}
+    if not {"frame", "session", "stage", "dispatch", "drain"} <= cats:
+        raise AssertionError(f"trace categories {sorted(cats)}")
+
+    marks = run["marks"]
+    live_s = marks["live_closed"] - marks["start"]
+    log(f"  fleet in process: {N_PATIENTS * INGEST_WINDOWS} windows in "
+        f"{ref.ledger.summary()['fleet']['batches']} batches, "
+        f"{run['inproc_s']:.3f} s "
+        f"({N_PATIENTS * INGEST_WINDOWS / run['inproc_s']:.1f} windows/s, "
+        f"host clock); longest dispatch {run['longest_dispatch_s']:.4f} s, "
+        f"stall timeout {run['stall_timeout_s']:.3f} s ({card})")
+    log(f"  fleet over TCP: {n_checked} windows in "
+        f"{eng.ledger.summary()['fleet']['batches']} batches; every live "
+        f"session closed "
+        f"{live_s:.3f} s after the start ({n_checked / live_s:.1f} "
+        f"windows/s, host clock), the stalled one evicted at "
+        f"{marks['closed'] - marks['start']:.3f} s; e2e latency ms "
+        f"{tele['latency_ms']} ({card})")
+    log(f"  transport: {fleet}")
+    stream = {k: launches[k] for k in ("posit_round", "posit_fft_stages",
+                                       "posit_matmul_round",
+                                       "posit_butterfly")}
+    log(f"  launches on the TCP run: {stream}; plain versions on CUDA "
+        f"tensors: 0; /metrics "
+        f"{len(got)} series reconcile; trace {len(events)} events, "
+        f"{run['tracer'].dropped} dropped, categories {sorted(cats)}")
+    return run["launches"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2479,6 +2810,12 @@ def main() -> int:
     report["posit_fma_round"]["launches"] = run_fma(
         dev, counters)["posit_fma_round"]
     log(f"  phase 6 in {time.perf_counter() - t0:.1f} s ({card})")
+
+    phase("phase 7: the ingest fleet over TCP, with the observability "
+          "plane")
+    t0 = time.perf_counter()
+    check_ingest(run_ingest(dev, forest, counters), dev, card)
+    log(f"  phase 7 in {time.perf_counter() - t0:.1f} s ({card})")
     phase("done")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -15,8 +15,14 @@ Sampling: greedy tokens equal the reference's.  A sampled token draws
 Gumbel noise from a CPU ``torch.Generator`` seeded from (engine seed,
 rid, step), so repeated prompts on one engine draw distinct streams and
 the same seed reproduces them, but the draws are not ``jax.random``'s:
-sampled tokens differ from the reference's.  The observability binding
-(metrics, tracer, compiled-program counters) waits for a later slice.
+sampled tokens differ from the reference's.
+
+Observability mirrors the stream engine's: a metrics registry the
+``TokenLedger`` is bound into (``bind_serving_engine``), the reference's
+program-cache probes (``jit_programs_total`` counts one decode callable per
+lane and one prefill shape per (lane, prompt bucket); ``jit_cache_hits_total``
+the prefills that reuse a bucket), and an optional tracer with admit,
+prefill, decode and retire spans from host stamps.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.quant import quantize_params
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import to_device
+from repro_torch.obs import MetricsRegistry, bind_serving_engine
 from repro_torch.stream.engine import bucket_size
 
 from .accounting import (TokenLedger, kv_traffic_bytes, prefill_energy_nj,
@@ -93,6 +100,11 @@ class _Lane:
         self.temps = np.zeros((B,), np.float32)
         self.active = np.zeros((B,), bool)
         self.ctx = np.zeros((B,), np.int64)  # valid cache length per row
+        self._seen_ppad: set = set()  # prompt buckets already prefilled
+        # lane creation builds exactly one decode callable per lane
+        engine.metrics.counter(
+            "jit_programs_total", "compiled programs by site").inc(
+                site="serve.decode", lane=sp.lane)
 
     def decode(self, seed: int) -> np.ndarray:
         """One batched decode step: next token per row (greedy, or sampled
@@ -120,12 +132,14 @@ class ServingEngine:
     ``policy`` may be a ``ServePolicy`` or a ``QuantPolicy`` — it sets the
     default lane for ``submit``/``generate``; per-request policies open
     further lanes.  ``params`` is the model's raw (f32) tree; it is kept,
-    and quantized once per weight format.
+    and quantized once per weight format.  ``metrics`` (``None``: a
+    private registry; ``NULL_METRICS``: off) and ``tracer`` (default off)
+    are the observability plane, as on the stream engine.
     """
 
     def __init__(self, model, params, cfg: ServeConfig,
                  policy: Union[ServePolicy, QuantPolicy] = None,
-                 device=None):
+                 device=None, metrics=None, tracer=None):
         self.device = resolve_device(device)
         self.model = model
         self.cfg = cfg
@@ -137,8 +151,16 @@ class ServingEngine:
         self._raw_params = to_device(params, self.device)
         self._quantized: Dict[Optional[str], object] = {}
         self._lanes: Dict[str, _Lane] = {}
-        self.scheduler = Scheduler(cfg.batch_size, cfg.max_completions)
         self.ledger = TokenLedger()
+        self.metrics = MetricsRegistry() if metrics is None else metrics
+        self.tracer = tracer
+        bind_serving_engine(self.metrics, self)
+        self._jit_programs = self.metrics.counter(
+            "jit_programs_total", "compiled programs by site")
+        self._jit_hits = self.metrics.counter(
+            "jit_cache_hits_total", "compiled-program cache hits by site")
+        self.scheduler = Scheduler(cfg.batch_size, cfg.max_completions,
+                                   metrics=self.metrics)
 
     # -- params -----------------------------------------------------------
     def _params_for(self, weights_fmt: Optional[str]):
@@ -180,6 +202,13 @@ class ServingEngine:
         lane = self._lane(req.policy)
         P = len(req.prompt)
         P_pad = bucket_size(P, self.cfg.max_prompt)
+        # one prefill shape per (lane, prompt bucket): count new buckets vs
+        # reuses, so a bucketing regression shows up as a metric
+        if P_pad not in lane._seen_ppad:
+            lane._seen_ppad.add(P_pad)
+            self._jit_programs.inc(site="serve.prefill", lane=req.policy.lane)
+        else:
+            self._jit_hits.inc(site="serve.prefill", lane=req.policy.lane)
         toks = np.zeros((1, P_pad), np.int64)
         toks[0, :P] = req.prompt  # right-pad; lengths mask the tail
         t0 = time.perf_counter()
@@ -198,10 +227,19 @@ class ServingEngine:
         else:
             tok = int(torch.argmax(lv))     # waits for the install too
         t1 = time.perf_counter()
+        if self.tracer is not None:
+            self.tracer.complete("serve", "prefill", t0, t1,
+                                 track=f"lane:{req.policy.lane}",
+                                 args={"rid": req.rid, "P": P,
+                                       "P_pad": P_pad, "slot": slot})
         self.ledger.record_prefill(
             req.policy.lane, P, t1 - t0,
             prefill_energy_nj(self.model.cfg, P, req.policy))
         if self.scheduler.on_token(req.policy.lane, slot, tok):
+            if self.tracer is not None:
+                self.tracer.instant("serve", "retire",
+                                    track=f"lane:{req.policy.lane}",
+                                    args={"rid": req.rid, "slot": slot})
             return
         lane.cur[slot] = tok
         lane.rids[slot] = req.rid
@@ -214,8 +252,14 @@ class ServingEngine:
     def step(self) -> int:
         """Admit what fits, then run one batched decode step per active
         lane.  Returns the number of real tokens emitted."""
+        tr = self.tracer
         for req, slot in self.scheduler.take_admissions():
+            t_adm = tr.now() if tr is not None else 0.0
             self._admit(req, slot)
+            if tr is not None:
+                tr.complete("serve", "admit", t_adm, tr.now(),
+                            track=f"lane:{req.policy.lane}",
+                            args={"rid": req.rid, "slot": slot})
         emitted = 0
         for lane_name in self.scheduler.active_lanes():
             lane = self._lanes[lane_name]
@@ -237,7 +281,16 @@ class ServingEngine:
                 lane.steps[i] += 1
                 if self.scheduler.on_token(lane_name, i, int(toks[i])):
                     lane.active[i] = False
+                    if tr is not None:
+                        tr.instant("serve", "retire",
+                                   track=f"lane:{lane_name}",
+                                   args={"rid": int(lane.rids[i]),
+                                         "slot": int(i)})
             emitted += len(rows)
+            if tr is not None:
+                tr.complete("serve", "decode", t0, t0 + wall,
+                            track=f"lane:{lane_name}",
+                            args={"rows": len(rows)})
             self.ledger.record_decode(
                 lane_name, len(rows), self.cfg.batch_size - len(rows),
                 wall, energy, kv_read)

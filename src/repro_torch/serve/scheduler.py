@@ -1,6 +1,5 @@
 """Continuous-batching scheduler: pure bookkeeping, no device code (the
-port's copy of ``repro.serve.scheduler``; the metrics binding waits for
-the observability slice).
+port's copy of ``repro.serve.scheduler``).
 
 Requests queue up, get admitted into fixed slot tables (one table per
 precision lane, ``ServePolicy.lane``), emit tokens until EOS or their
@@ -9,7 +8,7 @@ slot is reused mid-flight while the other rows keep decoding.  Finished
 requests land in a bounded drop-oldest completion queue (same
 ``bounded_admit`` overflow policy as the stream engine's backlog).
 
-The engine owns the device side (caches, jitted prefill/decode); this
+The engine owns the device side (caches, prefill/decode); this
 module decides WHO occupies WHICH row WHEN.
 """
 from __future__ import annotations
@@ -20,6 +19,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.obs import NULL_METRICS
 from repro_torch.stream.engine import bounded_admit
 
 from .policy import AGGRESSIVE_SERVE, ServePolicy
@@ -69,7 +69,8 @@ class Slot:
 class Scheduler:
     """Admission + slot lifecycle for a multi-lane continuous batch."""
 
-    def __init__(self, batch_size: int, max_completions: Optional[int] = 256):
+    def __init__(self, batch_size: int, max_completions: Optional[int] = 256,
+                 metrics=None):
         self.batch_size = batch_size
         self.waiting: Deque[Request] = collections.deque()
         self.slots: Dict[str, List[Optional[Slot]]] = {}
@@ -78,6 +79,13 @@ class Scheduler:
         self.dropped = 0
         self._warn_at = 1
         self._next_rid = 0
+        # optional engine registry: retirement + overflow become scrapeable
+        self._metrics = NULL_METRICS if metrics is None else metrics
+        self._completions_c = self._metrics.counter(
+            "serve_completions_total", "retired requests by lane and reason")
+        self._comp_dropped_c = self._metrics.counter(
+            "serve_completions_dropped_total",
+            "completions evicted from the bounded queue, by lane")
 
     # -- admission --------------------------------------------------------
     def submit(self, request: Request) -> int:
@@ -128,9 +136,11 @@ class Scheduler:
                           tokens=np.asarray(slot.tokens, np.int32),
                           prompt_len=len(slot.request.prompt),
                           finish_reason=reason, lane=lane)
+        self._completions_c.inc(lane=lane, reason=reason)
         self.dropped, self._warn_at = bounded_admit(
             self.completions, comp, self.max_completions, self.dropped,
-            self._warn_at, "serve completions")
+            self._warn_at, "serve completions",
+            on_drop=lambda v: self._comp_dropped_c.inc(lane=v.lane))
         self.slots[lane][slot_idx] = None
         return True
 

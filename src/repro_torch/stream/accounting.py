@@ -1,6 +1,5 @@
 """Per-window energy/latency accounting wired to the paper's ASIC model
-(the counterpart of ``repro.stream.accounting``, without the ingest layer's
-transport column).
+(the counterpart of ``repro.stream.accounting``).
 
 Arithmetic op counts per window are derived from the pipeline definitions
 (the FFT dominates cough; the slope-product integration dominates R-peak) and
@@ -12,7 +11,8 @@ on the FPU_ss corner (paper Tables IV/V).  Windows that ran above their
 patient's static format because the escalation policy raised the rung are
 additionally attributed per patient and per group (``escalation_summary`` /
 the ``escalation_nj`` column), so the energy price of quality feedback is
-auditable next to the throughput it buys.
+auditable next to the throughput it buys.  The ingest layer's transport
+column (``TransportStats``) sits beside them, per patient.
 """
 from __future__ import annotations
 
@@ -138,12 +138,43 @@ class GroupStats:
     escalation_nj: float = 0.0     # their nJ above the patients' base formats
 
 
+@dataclasses.dataclass
+class TransportStats:
+    """Per-patient transport/session counters (the ingest layer's column).
+
+    Maintained by ``repro_torch.ingest.SessionManager`` /
+    ``StreamEngine.evict_patient``; zero-cost for in-process callers that
+    never touch the transport path.
+    """
+
+    frames: int = 0               # DATA frames received (incl. dups/held)
+    bytes: int = 0                # payload bytes of those frames
+    dup_frames: int = 0           # dropped as duplicates
+    replayed_frames: int = 0      # re-sent by the client after a reconnect
+                                  # (client-reported; deduped into
+                                  # exactly-once by the seq logic)
+    reordered_frames: int = 0     # arrived early, held in the reorder buffer
+    gap_events: int = 0           # in-order → gapped transitions
+    connects: int = 0             # HELLOs (reconnects = connects - 1)
+    late_frames: int = 0          # arrived after eviction, dropped
+    abandoned_frames: int = 0     # held for a gap that never filled, lost
+    evictions: int = 0            # stall-timeout evictions (0 or 1)
+    modality_stalls: int = 0      # per-modality dropouts noted while the
+                                  # session stayed live on other modalities
+    windows_flushed: int = 0      # complete windows dispatched at close
+    windows_dropped: int = 0      # pending windows lost (eviction flush
+                                  # failed on an unroutable stream)
+    staged_freed: int = 0         # partial staged slices freed at close
+
+
 class EnergyLedger:
     def __init__(self):
         self.stats: Dict[Tuple[str, str], GroupStats] = {}
         # per-patient escalation attribution: extra nJ spent above the
         # patient's static format, and how many windows it covered
         self.escalation: Dict[str, Dict[str, float]] = {}
+        # per-patient transport/session counters (ingest layer)
+        self.transport: Dict[str, TransportStats] = {}
 
     def record(self, task: str, fmt: str, n_windows: int, n_padded: int,
                latency_s: float, ops_per_window: OpCounts,
@@ -169,6 +200,32 @@ class EnergyLedger:
     def escalation_summary(self) -> Dict[str, Dict[str, float]]:
         """Per-patient escalation attribution ({patient: windows/extra_nj})."""
         return {p: dict(d) for p, d in sorted(self.escalation.items())}
+
+    def record_transport(self, patient: str, **deltas: int) -> None:
+        """Accumulate transport counters for one patient; ``deltas`` keys
+        must be ``TransportStats`` fields (typo-safe: unknown keys raise)."""
+        t = self.transport.setdefault(patient, TransportStats())
+        for k, v in deltas.items():
+            setattr(t, k, getattr(t, k) + v)  # AttributeError on a typo
+
+    def rows(self) -> Dict[str, Dict[str, float]]:
+        """Raw per-(task, format) totals keyed ``"task/fmt"`` — the
+        mergeable form a multi-process worker would ship to its
+        supervisor, which sums fields across workers and re-derives the
+        fleet rollup."""
+        return {f"{task}/{fmt}": dataclasses.asdict(g)
+                for (task, fmt), g in sorted(self.stats.items())}
+
+    def transport_summary(self) -> Dict[str, Dict[str, int]]:
+        """{patient: counters} plus a "fleet" rollup row (sums)."""
+        out = {p: dataclasses.asdict(t)
+               for p, t in sorted(self.transport.items())}
+        fleet = dataclasses.asdict(TransportStats())
+        for row in out.values():
+            for k, v in row.items():
+                fleet[k] += v
+        out["fleet"] = fleet
+        return out
 
     def summary(self) -> Dict[str, Dict[str, float]]:
         """{"task/fmt": {...}} plus a "fleet" rollup row."""

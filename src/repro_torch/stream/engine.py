@@ -15,8 +15,12 @@ per-patient stateful tracker; its confirmed R-peaks come back on the
 router's precision escalation, with the extra energy of escalated windows
 attributed in the ledger.
 
-Not in this slice: mesh sharding, the observability plane (metrics,
-tracer), and stream eviction with the ingest layer's hooks.
+The observability plane (``repro_torch.obs``) watches from the host: a
+metrics registry mirrors the ledger and counts built pipeline callables,
+and an optional tracer records dispatch spans from the stamps the ledger
+already takes.  The ingest layer's hooks (``pending_windows``,
+``release_patient``, ``evict_patient``, ``reset``) close streams and free
+their state.  Not here: mesh sharding (ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -24,13 +28,14 @@ import collections
 import dataclasses
 import time
 import warnings
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Deque, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.arith import fusion_cache_key
 from repro_torch.core.device import resolve_device
+from repro_torch.obs import MetricsRegistry, bind_stream_engine
 
 from .accounting import EnergyLedger, window_energy_nj
 from .pipelines import Pipeline
@@ -39,18 +44,26 @@ from .router import PrecisionRouter
 
 
 def bounded_admit(queue: Deque, item, capacity: Optional[int],
-                  dropped: int, warn_at: int, label: str
-                  ) -> Tuple[int, int]:
+                  dropped: int, warn_at: int, label,
+                  on_drop=None) -> Tuple[int, int]:
     """Append ``item`` to a bounded deque, dropping the OLDEST entry past
     ``capacity`` with a rate-limited (doubling) warning.  Returns the
     updated ``(dropped, warn_at)`` counters.  Shared by the engine's result
-    backlog and the serving scheduler's completion queue, so the overflow
-    policy has one implementation."""
+    backlog, the ingest supervisor's queue and the serving scheduler's
+    completion queue, so the overflow policy has one implementation.
+
+    ``on_drop(victim)`` runs for every evicted entry BEFORE the warning
+    fires, so callers can attribute drops (per patient, into a metrics
+    counter); ``label`` may be a callable producing the message lazily —
+    it is only formatted on the rate-limited path, never per admit."""
     if capacity is not None and len(queue) >= capacity:
-        queue.popleft()
+        victim = queue.popleft()
         dropped += 1
+        if on_drop is not None:
+            on_drop(victim)
         if dropped >= warn_at:
-            warnings.warn(f"{label}: dropped oldest — {dropped} drops so "
+            msg = label() if callable(label) else label
+            warnings.warn(f"{msg}: dropped oldest — {dropped} drops so "
                           f"far", RuntimeWarning, stacklevel=3)
             warn_at = max(warn_at * 2, 1)
     queue.append(item)
@@ -90,7 +103,7 @@ class StreamEngine:
                  autotune_horizon: int = 256,
                  pad_auto_threshold: float = 0.25,
                  result_capacity: Optional[int] = 4096,
-                 device=None):
+                 device=None, metrics=None, tracer=None):
         """``device``: where windows are scored (default: the card; without
         CUDA this raises unless ``device="cpu"`` is given).
 
@@ -104,6 +117,21 @@ class StreamEngine:
         ``result_capacity`` bounds the ``results`` backlog: past the cap the
         OLDEST results are dropped (counted in ``dropped_results``, with a
         rate-limited warning).  ``None`` leaves it unbounded.
+
+        ``metrics`` is the engine's observability registry (a
+        ``repro_torch.obs.MetricsRegistry``; ``None`` creates a private
+        one, ``repro_torch.obs.NULL_METRICS`` turns the plane off).  The
+        session, supervisor and server layers share it.  ``tracer`` (a
+        ``repro_torch.obs.Tracer``, default off) records per-window
+        lifecycle spans.  Both live on the host: they read the stamps the
+        ledger already takes and add no device synchronization.
+
+        The program-cache probes keep the reference's series names
+        (``jit_programs_total``, ``jit_cache_hits_total``,
+        ``jit_fusion_key_changes_total``) so a scraped page has the same
+        series; here they count the pipeline callables built, and reused,
+        per ``(task, fmt, fusion_cache_key())``, and flips of that key
+        between dispatches.
         """
         self.device = resolve_device(device)
         self.pipelines = dict(pipelines)
@@ -123,7 +151,20 @@ class StreamEngine:
         self.dropped_results = 0
         self._drop_warn_at = 1
         self.ledger = EnergyLedger()
+        self.metrics = MetricsRegistry() if metrics is None else metrics
+        self.tracer = tracer
+        bind_stream_engine(self.metrics, self)
+        self._jit_programs = self.metrics.counter(
+            "jit_programs_total", "compiled programs by site")
+        self._jit_hits = self.metrics.counter(
+            "jit_cache_hits_total", "compiled-program cache hits by site")
+        self._fusion_changes = self.metrics.counter(
+            "jit_fusion_key_changes_total",
+            "fusion_cache_key() flips observed between dispatches — "
+            "each flip builds every live (task, fmt) callable anew")
+        self._last_fusion_key = None
         self.results: Deque[WindowResult] = collections.deque()
+        self._evicted: Set[Tuple[str, str]] = set()
         self._dispatchers: Dict[Tuple[str, str], WindowDispatcher] = {}
         # pending windows grouped per (patient, task) in arrival order;
         # routed per group at pump time, so a re-pinned patient picks up
@@ -137,6 +178,9 @@ class StreamEngine:
     def register_patient(self, patient: str, task: str,
                          fmt: Optional[str] = None) -> None:
         key = (patient, task)
+        if key in self._evicted:
+            raise KeyError(f"{patient!r}'s {task!r} stream was closed "
+                           f"(BYE or stall eviction); reset() starts fresh")
         if key in self._dispatchers:
             raise KeyError(f"{patient!r} already registered for {task!r}")
         self._dispatchers[key] = WindowDispatcher(
@@ -224,6 +268,11 @@ class StreamEngine:
         """End-of-stream flush: dispatch everything still pending."""
         return self.pump(include_partial=True)
 
+    def pending_windows(self) -> int:
+        """Ready-but-undispatched window count across the fleet — the
+        transport layer's backpressure signal."""
+        return sum(len(ws) for ws in self._pending.values())
+
     def _effective_pad_to_max(self) -> bool:
         if self.pad_policy == "max":
             return True
@@ -244,11 +293,23 @@ class StreamEngine:
         return "max" if self._effective_pad_to_max() else "pow2"
 
     def _fn(self, task: str, fmt: str):
-        key = (task, fmt, fusion_cache_key())
+        # keyed on the live fusion_cache_key so a backend/quire toggle
+        # mid-flight builds a fresh callable instead of serving the stale
+        # one — and so the probes see every rebuild it causes
+        fkey = fusion_cache_key()
+        if self._last_fusion_key is None:
+            self._last_fusion_key = fkey
+        elif fkey != self._last_fusion_key:
+            self._fusion_changes.inc(site="stream")
+            self._last_fusion_key = fkey
+        key = (task, fmt, fkey)
         fn = self._fns.get(key)
         if fn is None:
             fn = self._fns[key] = self.pipelines[task].make_fn(fmt,
                                                                self.device)
+            self._jit_programs.inc(site="stream", task=task, fmt=fmt)
+        else:
+            self._jit_hits.inc(site="stream", task=task, fmt=fmt)
         return fn
 
     def _dispatch(self, task: str, fmt: str, windows: List[Window]) -> None:
@@ -276,6 +337,19 @@ class StreamEngine:
         self.ledger.record(task, fmt, B, Bpad - B, dt, pipe.ops_per_window,
                            n_escalated=n_esc, escalation_extra_nj=esc_nj)
         done = time.perf_counter()
+        tr = self.tracer
+        if tr is not None:
+            # host stamps only: ready_wall/t0/done already exist for the
+            # ledger; tracing adds no clock read or sync on the device path
+            tr.complete("dispatch", f"{task}/{fmt}", t0, done,
+                        track="dispatch",
+                        args={"task": task, "fmt": fmt, "B": B,
+                              "Bpad": Bpad})
+            for w in windows:
+                if w.ready_wall:
+                    tr.complete("stage", "ready->dispatch", w.ready_wall,
+                                t0, track=w.patient,
+                                args={"widx": w.widx, "task": task})
         for w, row in zip(windows, rows):
             self._append_result(WindowResult(
                 w.patient, task, w.widx, fmt, w.t0_s, row,
@@ -287,7 +361,12 @@ class StreamEngine:
             self.results, r, self.result_capacity, self.dropped_results,
             self._drop_warn_at,
             f"engine results backlog full (result_capacity="
-            f"{self.result_capacity}); drain with pop_results()")
+            f"{self.result_capacity}); drain with pop_results() or run a "
+            f"repro_torch.ingest.Supervisor",
+            on_drop=lambda v: self.metrics.counter(
+                "engine_results_dropped_total",
+                "WindowResults evicted from the engine backlog"
+            ).inc(patient=v.patient))
 
     def _track(self, pipe: Pipeline, task: str, fmt: str,
                windows: List[Window], rows: List[Dict[str, np.ndarray]]
@@ -342,6 +421,76 @@ class StreamEngine:
         """Flush every tracked stream; {(patient, task): tail peaks}."""
         return {key: self.finalize_patient(*key)
                 for key in sorted(self._trackers)}
+
+    # -- stream close / stall eviction ----------------------------------------
+    def release_patient(self, patient: str, task: str) -> Tuple[int, int]:
+        """Free a closed stream's dispatcher — ring buffers, partially
+        staged slices, window-grid state — and refuse further ingest for
+        it.  The tracker (the stream's peak history) and any undrained
+        results are kept.  Returns the (slices, bytes) freed."""
+        key = (patient, task)
+        self._evicted.add(key)
+        disp = self._dispatchers.pop(key, None)
+        return disp.staged_cost() if disp is not None else (0, 0)
+
+    def evict_patient(self, patient: str, task: str) -> Dict[str, int]:
+        """Close one stream — clean BYE or stall eviction: dispatch its
+        complete pending windows (so the delivered prefix is fully scored),
+        finalize its tracker, and free its dispatcher.  Further ingest for
+        the stream raises.  Returns what was flushed/dropped/freed, for the
+        ledger's transport column.
+
+        This path never raises (a close that wedges the session layer is
+        worse than a lossy close): a failing dispatch drops the stream's
+        remaining windows and counts them in ``windows_dropped``, batches
+        dispatched before the failure still count as flushed, and a
+        finalize failure is swallowed after the state is freed.  A caller
+        on the card that must see a failing launch checks that count.
+
+        After eviction the tracker's ``peaks`` equal the offline
+        detector's output on exactly the window prefix that fully arrived.
+        """
+        key = (patient, task)
+        flushed = dropped = 0
+        ws = self._pending.pop(key, [])
+        if ws:
+            try:
+                fmt = self.router.route(patient, task).fmt
+                while ws:
+                    batch = ws[: self.max_batch]
+                    self._dispatch(task, fmt, batch)
+                    del ws[: len(batch)]
+                    flushed += len(batch)
+            except Exception:  # noqa: BLE001 — counted, see the docstring
+                dropped = len(ws)   # the un-dispatched remainder is lost
+            self._recount_pending()
+        staged_slices, staged_bytes = self.release_patient(patient, task)
+        if key in self._trackers:
+            try:
+                self.finalize_patient(patient, task)
+            except Exception:  # noqa: BLE001 — state is already freed
+                pass
+        return {"windows_flushed": flushed, "windows_dropped": dropped,
+                "staged_slices": staged_slices,
+                "staged_bytes": staged_bytes}
+
+    def reset(self) -> None:
+        """Fresh streams and metrics.  The built (task, format) callables
+        are kept, so a run can warm up, reset, then measure steady state —
+        and so is an ``"auto"`` pad-policy decision learned in warmup."""
+        self._dispatchers.clear()
+        self._pending.clear()
+        self._pending_counts.clear()
+        self._trackers.clear()
+        self._evicted.clear()
+        self.results = collections.deque()
+        self.dropped_results = 0
+        self._drop_warn_at = 1
+        self.ledger = EnergyLedger()
+        # metric VALUES reset with the ledger (registrations and collectors
+        # survive, like the built callables)
+        self.metrics.reset()
+        self._last_fusion_key = None
 
     # -- reporting ------------------------------------------------------------
     def fleet_summary(self) -> Dict[str, Dict[str, float]]:

@@ -16,7 +16,8 @@ ones and in f64, the same bits on every call; the FFT stage-range kernel
 bitwise at the cough path's middle stages, whole FFTs of 4096 and 256
 points (two passes, an odd batch) and in f64, one launch per pass; the
 multiply-add at every element offset within 16 bytes, under row, column
-and host 0-d broadcasts.
+and host 0-d broadcasts; and a small ingest fleet over localhost TCP on
+the card, bitwise equal to the in-process run there.
 """
 import numpy as np
 import pytest
@@ -599,3 +600,66 @@ def test_round_to_float_card_equals_cpu(name, dev):
         assert torch.equal(torch.isnan(k), torch.isnan(p))
         ok = ~torch.isnan(p)
         assert _equal_bits(k[ok], p[ok])
+
+
+def test_ingest_tcp_fleet_on_the_card_equals_inproc(dev):
+    """A small mixed fleet over localhost TCP (duplicates, deferred frames,
+    one stalled ECG patient) on the card: every delivered window bitwise
+    equal to the in-process run on the card, the stalled patient evicted,
+    no window dropped, and the stream kernels launched."""
+    import asyncio
+
+    from repro_torch.apps.cough import train_reference_forest
+    from repro_torch.ingest import (FleetSimulator, IngestServer,
+                                    SessionManager, Supervisor)
+    from repro_torch.kernels.posit_fft import posit_fft_stages
+    from repro_torch.stream import (StreamEngine, cough_pipeline,
+                                    rpeak_pipeline)
+
+    forest = train_reference_forest(24, 123, n_trees=5, depth=4, device=dev)
+    pipes = {"cough": cough_pipeline(forest), "rpeak": rpeak_pipeline()}
+
+    def sim():
+        return FleetSimulator(n_patients=8, windows=2, seed=3, mixed=True,
+                              n_cough=4, dup_rate=0.1, defer_rate=0.1,
+                              stall_after={"ecg-002": 1})
+
+    def engine():
+        return StreamEngine(pipes, max_batch=4, pad_policy="max",
+                            result_capacity=None, device=dev)
+
+    ref = engine()
+    sim().run_inproc(ref)             # also builds and warms the kernels
+    eng, fleet = engine(), sim()
+    sup = Supervisor(eng, capacity=1024)
+    for c in (posit_round, posit_fft_stages, posit_matmul_round):
+        c.launches = 0
+
+    async def main():
+        sm = SessionManager(eng, stall_timeout_s=5.0)
+        fleet.pin_all(eng)
+        async with IngestServer(sm, port=0) as srv:
+            done = [False]
+            pump = asyncio.ensure_future(
+                sup.run_async(0.005, stop=lambda: done[0]))
+            await fleet.run_tcp("127.0.0.1", srv.port)
+            while not sm.all_closed():
+                await asyncio.sleep(0.02)
+            done[0] = True
+            await pump
+
+    asyncio.run(main())
+    for c in (posit_round, posit_fft_stages, posit_matmul_round):
+        assert c.launches > 0, c.__name__
+    ts = eng.ledger.transport_summary()
+    assert ts["ecg-002"]["evictions"] == 1
+    assert ts["fleet"]["evictions"] == 1
+    assert ts["fleet"]["windows_dropped"] == 0
+    want = {(r.patient, r.widx): r for r in ref.pop_results()}
+    got = sup.pop()
+    assert len(got) >= 14
+    for r in got:
+        w = want[(r.patient, r.widx)]
+        assert r.fmt == w.fmt
+        for k, v in r.outputs.items():
+            np.testing.assert_array_equal(v, w.outputs[k])
