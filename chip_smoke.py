@@ -71,6 +71,20 @@ Phases, each fatal on failure:
      earlier route (ms per decode step of each), the KV-attention kernel
      held against its plain version on the live cache, and the reduced
      config's logits on the card against the same weights on the CPU;
+  5b. the MoE serve path: granite-moe-3b-a800m at full width (32 layers,
+     40 experts top-8, random weights from a seeded generator on the
+     card) behind ``ServingEngine`` with phase 5's two lanes and 12
+     requests: every request completed once, 32 KV-attention launches per
+     decode step, one KV append per layer and decode step or prefill, no
+     encode while serving, the weight decodes per lane-step and prefill
+     the number predicted from the quant policy, no plain version called
+     on a CUDA tensor, ``/metrics`` reconciling, greedy tokens reproduced
+     by a second engine under ``torch.profiler`` (busy share, kernels per
+     lane-step, the weight decode's device time), the expert-stack
+     decode's device time per lane-step beside its byte bound; then one
+     2048-position prefill without lengths (``chunked_attention``: finite
+     logits, layer 0 within 1e-2 of ``plain_attention`` on the card), and
+     the reduced config's logits on the card against the CPU's;
   6. the format study: R-peak F1 over nine formats and cough AUC over
      three on the card, the paper's orderings asserted, three formats'
      F1 card against CPU; the quickstart (one decode-fused matmul launch);
@@ -87,7 +101,18 @@ Phases, each fatal on failure:
      reconciling exactly with the ledger and the telemetry, a valid Chrome
      trace; windows/s in process and over TCP, latency percentiles and
      the longest dispatch logged (the stall timeout is 5x that, at least
-     1 s).
+     1 s);
+  8. the ingest worker pool on the card, two spawned workers each with
+     its own CUDA context: the reference suite's chaos acceptance run (64
+     ECG patients, worker 0 SIGKILLed 0.4 s after its ready, one patient
+     partitioned, one corrupted, auth and spill armed) with every
+     patient's digest equal to the in-process card run and the restart's
+     recovery time; then phase 7's mixed fleet, fault-free, its ledger
+     windows and nJ and every digest equal to the in-process run, each
+     worker's launches of the round, the FFT stage range and the rounded
+     matmul above zero and no plain version called on a CUDA tensor
+     there; windows/s of the pool and in process, and the card memory
+     each worker holds.
 
 Phase 2 also holds the multiply-add bitwise and the decode-fused matmul
 within 1e-5 of its largest output against their plain versions (at the
@@ -95,6 +120,9 @@ quickstart's shape, the FFN width in posit16 and posit8, a ragged shape
 and an int32 container), the IEEE rounding on the card bitwise against the
 CPU's, and quire-mode dot and matmul on the card against the exact oracle;
 the KV-attention is held at S = 96 (one split) and S = 32768 (many).
+Phase 2 also holds, at granite-moe-3b-a800m's shapes, the KV-attention
+at D = 64, G = 3 (posit8 and posit16) within 2e-5, the expert stacks'
+decode bitwise, and one MoE layer's output the same bits on a second call.
 Phase 3's fleet pins every fourth cough patient to fp16.  Each phase
 prints its wall time.
 
@@ -139,6 +167,14 @@ ALU_OPCODES = ("IADD3", "LOP3", "SHF", "LEA", "ISETP", "SEL", "IMNMX",
                "BREV", "PLOP3", "P2R", "R2P", "LOP")
 PROFILE_TRIES = 3              # profiles taken before a device time is NaN
 SERVE_ARCH = "qwen3-8b"
+MOE_ARCH = "granite-moe-3b-a800m"   # phase 5b
+LONG_PREFILL = 2048            # phase 5b: a prefill without lengths
+CHUNKED_TOL = dict(rtol=1e-2, atol=1e-2)   # chunked vs plain, bf16 outputs
+POOL_WORKERS = 2               # phase 8
+POOL_REALTIME = 8.0            # phase 8a: the drive lasts 0.5 s, so the kill
+                               # 0.4 s after the worker's ready lands in it
+POOL_STALL_S = 10.0            # phase 8: no patient stalls; the timeout only
+                               # outlasts a fresh worker's first dispatches
 SERVE_BATCH = 4                # slots per lane
 SERVE_MAX_PROMPT = 64
 SERVE_NEW_TOKENS = 32
@@ -1354,14 +1390,18 @@ def submit_all(engine, reqs):
 def first_greedy_token(engine, prompt, dev):
     """The greedy token the engine's prefill gives ``prompt`` (the same on
     both lanes: their weights are both posit16 and the prefill attends over
-    the fresh bf16 K/V)."""
+    the fresh bf16 K/V), right-padded to its bucket as the engine pads it
+    (a MoE layer's capacity counts the pad positions)."""
     import numpy as np
     import torch
     from repro_torch.serve import AGGRESSIVE_SERVE
+    from repro_torch.stream.engine import bucket_size
     lane = engine._lane(AGGRESSIVE_SERVE)
+    toks = np.zeros((1, bucket_size(len(prompt), engine.cfg.max_prompt)),
+                    np.int64)
+    toks[0, :len(prompt)] = prompt
     logits, _ = lane.model.prefill(
-        lane.params, {"tokens": torch.as_tensor(prompt[None].astype(
-            np.int64), device=dev),
+        lane.params, {"tokens": torch.from_numpy(toks).to(dev),
                       "lengths": torch.tensor([len(prompt)], device=dev)},
         lane.capacity)
     return int(torch.argmax(logits[0, -1, :engine.model.cfg.vocab]))
@@ -1485,7 +1525,7 @@ def check_serve(cfg, subs, comps, summary, load, launches):
     return by_rid
 
 
-def serve_reduced_on_card_and_cpu(dev):
+def serve_reduced_on_card_and_cpu(dev, arch=SERVE_ARCH):
     """The reduced config, run by the port on the card (the kernel route)
     and on the CPU (the plain route) with the same weights: ragged prefill
     and four decode steps fed the CPU's greedy tokens; logits within 2e-2
@@ -1499,7 +1539,7 @@ def serve_reduced_on_card_and_cpu(dev):
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_map
     from repro_torch.models.convert import params_from_jax
-    cfg = reduced(CONFIGS[SERVE_ARCH])
+    cfg = reduced(CONFIGS[arch])
     cpu = build_model(cfg, AGGRESSIVE_POLICY, device="cpu")
     raw = tree_map(lambda t: t.numpy(),
                    cpu.init(torch.Generator().manual_seed(SEED)))
@@ -1528,7 +1568,7 @@ def serve_reduced_on_card_and_cpu(dev):
     worst, n_equal, n_clear = 0.0, 0, 0
     for s, (a, b) in enumerate(zip(outs[dev], outs["cpu"])):
         if not torch.allclose(a, b, **LOGIT_TOL):
-            raise AssertionError(f"reduced {SERVE_ARCH} step {s}: card "
+            raise AssertionError(f"reduced {arch} step {s}: card "
                                  f"logits {max_abs_err(a, b):.3g} from "
                                  f"the CPU's")
         a, b = a[:, :cfg.vocab], b[:, :cfg.vocab]
@@ -1539,12 +1579,12 @@ def serve_reduced_on_card_and_cpu(dev):
         top2 = b.topk(2, dim=-1).values
         clear = (top2[:, 0] - top2[:, 1]) > 4e-2
         if not torch.all(same[clear]):
-            raise AssertionError(f"reduced {SERVE_ARCH} step {s}: greedy "
+            raise AssertionError(f"reduced {arch} step {s}: greedy "
                                  f"tokens differ between card and CPU")
         worst = max(worst, max_abs_err(a, b))
         n_equal += int(same.sum())
         n_clear += int(clear.sum())
-    log(f"  reduced {SERVE_ARCH} on the card vs the CPU: prefill + 4 decode "
+    log(f"  reduced {arch} on the card vs the CPU: prefill + 4 decode "
         f"steps, logits within {worst:.3g}; greedy tokens equal in "
         f"{n_equal} of {5 * len(lens)} ({n_clear} with a top-2 margin "
         f"above 4e-2, all equal)")
@@ -1669,6 +1709,324 @@ def serve_kv_route_ab(dev, model, params, reqs, want, card):
         f"{ms['kernel']} against the earlier route {ms['earlier']} (runs "
         f"in turns kernel, earlier, earlier, kernel; greedy tokens equal in "
         f"all four) ({card})")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: the moe family at full width behind ServingEngine
+# ---------------------------------------------------------------------------
+
+def moe_layer(cfg, gen, dev):
+    """One MoE layer of ``cfg`` at full width on ``dev``: an f32 router and
+    the expert stacks as posit16 bits, from ``gen``."""
+    import torch
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.quant import quantize_params
+    from repro_torch.models.common import materialize
+    from repro_torch.models.moe import init_moe
+    raw = materialize(init_moe(cfg), gen, dev)
+    return quantize_params({"moe": raw}, get_format("posit16"))["moe"]
+
+
+def check_moe_kernels(dev, report):
+    """Phase 2 at the MoE path's geometry (``MOE_ARCH``): the KV-attention
+    at D = 64, G = 3 in posit8 and posit16 within 2e-5 of its plain version,
+    the decode of the expert stacks bitwise, and one MoE layer's output and
+    aux loss the same bits on a second call (the combine adds in a fixed
+    order, without atomics)."""
+    import torch
+    from repro_torch.configs import CONFIGS
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels.posit_codec import (posit_decode,
+                                                 posit_decode_torch)
+    from repro_torch.kernels.posit_kv_attention import (
+        posit_kv_attention, posit_kv_attention_torch, query_groups)
+    from repro_torch.models.moe import moe_ffn
+    cfg = CONFIGS[MOE_ARCH]
+    KV, D = cfg.n_kv_heads, cfg.resolved_head_dim
+    G = cfg.n_heads // KV
+    gen = torch.Generator().manual_seed(SEED + 7)
+    err = report["posit_kv_attention"].get("max_abs_err") or 0.0
+    for name in ("posit8", "posit16"):
+        fmt = get_format(name)
+        for S in (96, LONG_PREFILL):
+            q, kb, vb = kv_case(gen, 4, S, KV, G, D, fmt, dev)
+            lengths = torch.tensor([1, S // 3, S - 1, S], dtype=torch.int32,
+                                   device=dev)
+            k = posit_kv_attention(q, kb, vb, lengths, fmt)
+            p = posit_kv_attention_torch(q, kb, vb, lengths, fmt)
+            torch.cuda.synchronize()
+            if not torch.allclose(k, p, **KV_TOL):
+                raise AssertionError(f"posit_kv_attention {name} G={G} "
+                                     f"D={D} S={S}: {max_abs_err(k, p)} "
+                                     f"from its plain version")
+            err = max(err, max_abs_err(k, p))
+            log(f"  posit_kv_attention {name} q (4, {KV}, {G}, {D}), K/V "
+                f"(4, {S}, {KV}, {D}) ({MOE_ARCH}), query groups "
+                f"{query_groups(G, D)}: within 2e-5, max abs err "
+                f"{max_abs_err(k, p):.3g}")
+    report["posit_kv_attention"]["max_abs_err"] = err
+    p16 = get_format("posit16")
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    for shape in ((E, d, f), (E, f, d)):
+        bits = torch.randint(-2 ** 15, 2 ** 15, shape, generator=gen,
+                             dtype=torch.int16).to(dev)
+        k = posit_decode(bits, p16, torch.bfloat16)
+        p = posit_decode_torch(bits, p16, torch.bfloat16)
+        torch.cuda.synchronize()
+        if not nan_aware_equal(k, p):
+            raise AssertionError(f"posit_decode expert stack {shape}: not "
+                                 f"bitwise equal to its plain version")
+        log(f"  posit_decode expert stack {shape} int16 -> bf16: bitwise")
+    layer = moe_layer(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                      dev)
+    for B, S in ((1, 64), (4, 1), (1, LONG_PREFILL)):
+        x = (torch.randn(B, S, d, generator=gen)).to(torch.bfloat16).to(dev)
+        out1, aux1 = moe_ffn(layer, x, cfg)
+        out2, aux2 = moe_ffn(layer, x, cfg)
+        torch.cuda.synchronize()
+        if not (torch.equal(out1.view(torch.int16), out2.view(torch.int16))
+                and torch.equal(aux1.view(torch.int32),
+                                aux2.view(torch.int32))):
+            raise AssertionError(f"moe_ffn ({B}, {S}, {d}): a second call "
+                                 f"on the card gave other bits")
+        if not bool(torch.isfinite(out1.float()).all()):
+            raise AssertionError(f"moe_ffn ({B}, {S}, {d}): not finite")
+        log(f"  moe_ffn ({B}, {S}, {d}) {E} experts top-{cfg.top_k}: the "
+            f"same bits on a second call (output and aux loss "
+            f"{float(aux1):.6f})")
+
+
+def moe_decodes_per_pass(cfg):
+    """The weight decodes one forward pass (a lane-step or a prefill) makes
+    under the posit16 weights policy, predicted from the quant policy: the
+    posit leaves per layer are wq, wk, wv, wo and the three expert stacks
+    (the router stays bf16: its name is not a weight leaf's), plus the
+    embedding's gathered rows and the unembedding."""
+    return cfg.n_layers * (4 + 3) + 2
+
+
+def log_serve_ledger(summary, card):
+    for lane, row in summary.items():
+        tok_s = 1e6 / row["us_per_token"] if row["us_per_token"] else 0.0
+        step_ms = (row["decode_tokens"] * row["us_per_token"] * 1e-3
+                   / row["decode_steps"] if row["decode_steps"] else 0.0)
+        prefill_ms = (row["prefill_tokens"] * row["prefill_us_per_token"]
+                      * 1e-3 / row["requests"] if row["requests"] else 0.0)
+        log(f"  ledger {lane}: {row['requests']} requests, "
+            f"{row['decode_tokens']} decode tokens in "
+            f"{row['decode_steps']} steps, {tok_s:.1f} tokens/s, "
+            f"{step_ms:.2f} ms per decode step, {prefill_ms:.2f} ms per "
+            f"prefill, {row['nj_per_token']:.1f} nJ/token, KV read "
+            f"{row['kv_read_bytes']:.0f} B ({card})")
+
+
+def check_live_kv(captured):
+    """The KV-attention kernel against its plain version on a live cache
+    captured from the serve run."""
+    import torch
+    from repro_torch.kernels.posit_kv_attention import (
+        posit_kv_attention, posit_kv_attention_torch)
+    q, kb, vb, lengths, fmt = captured
+    k = posit_kv_attention(q, kb, vb, lengths, fmt)
+    p = posit_kv_attention_torch(q, kb, vb, lengths, fmt)
+    torch.cuda.synchronize()
+    if not torch.allclose(k, p, **KV_TOL):
+        raise AssertionError(f"posit_kv_attention on the live layer-0 cache:"
+                             f" {max_abs_err(k, p):.3g} from its plain "
+                             f"version")
+    log(f"  posit_kv_attention on the live layer-0 cache "
+        f"{tuple(kb.shape)} {fmt.name}, lengths {lengths.tolist()}: within "
+        f"2e-5 of its plain version (max abs err {max_abs_err(k, p):.3g})")
+
+
+def expert_decode_per_lane_step(cfg, params, card):
+    """The device time of one lane-step's expert-stack decodes (three a
+    layer, the reference's whole-weight decode), each stack timed alone at
+    its shape with the L2 cache flushed before every call (the serve path
+    finds each stack's patterns cold), beside their byte bound (every
+    pattern read and every bf16 value written once)."""
+    import torch
+    from repro_torch.models.common import wval
+    moe = params["layers"]["moe"]
+    flush = torch.empty(1 << 28, dtype=torch.uint8,
+                        device=moe["w_gate"].bits.device)
+    ms, nbytes = 0.0, 0
+    for name in ("w_gate", "w_up", "w_down"):
+        leaf = moe[name][0]
+
+        def cold(leaf=leaf):
+            flush.zero_()       # 256 MB: every L2 line is the flush's
+            return wval(leaf)
+        ms += device_ms(cold, "posit_decode_kernel")
+        nbytes += leaf.bits.numel() * (leaf.bits.element_size() + 2)
+    ms *= cfg.n_layers
+    nbytes *= cfg.n_layers
+    log(f"  expert-stack decode per lane-step: {3 * cfg.n_layers} launches,"
+        f" {ms:.3f} ms on the device (each stack timed alone, L2 flushed "
+        f"before each call) against a byte bound of "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms ({nbytes / 1e9:.2f} GB "
+        f"read and written) ({card})")
+    del flush
+    torch.cuda.empty_cache()
+
+
+def long_prefill(dev, model, qparams, card):
+    """One prefill of ``LONG_PREFILL`` positions without lengths (the
+    chunked attention's path): finite logits, and layer 0's chunked
+    attention within ``CHUNKED_TOL`` of ``plain_attention`` on the same
+    q, k, v on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.models import attention as attn
+    toks = np.random.default_rng(SEED).integers(
+        1, model.cfg.vocab, (1, LONG_PREFILL))
+    captured = []
+    real = attn.chunked_attention
+
+    def capture(q, k, v, **kw):
+        if not captured:
+            captured.append((q, k, v, kw))
+        return real(q, k, v, **kw)
+    attn.chunked_attention = capture
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(
+            qparams, {"tokens": torch.from_numpy(toks).to(dev)})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        attn.chunked_attention = real
+    if len(captured) != 1 or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{LONG_PREFILL}-position prefill: "
+                             f"{len(captured)} chunked calls captured, "
+                             f"finite logits {torch.isfinite(logits).all()}")
+    q, k, v, kw = captured[0]
+    got = real(q, k, v, **kw)
+    want = attn.plain_attention(q, k, v, causal=kw["causal"],
+                                window=kw["window"], cap=kw["cap"])
+    torch.cuda.synchronize()
+    if not torch.allclose(got.float(), want.float(), **CHUNKED_TOL):
+        raise AssertionError(f"chunked_attention layer 0: "
+                             f"{max_abs_err(got, want):.3g} from "
+                             f"plain_attention")
+    log(f"  prefill of {LONG_PREFILL} positions without lengths in "
+        f"{wall * 1e3:.1f} ms (host clock): logits finite, caches at "
+        f"{caches.length.unique().tolist()}; layer 0's chunked_attention "
+        f"q {tuple(q.shape)} within rtol = atol = 1e-2 of plain_attention "
+        f"(max abs err {max_abs_err(got, want):.3g}) ({card})")
+
+
+def time_moe_kernels(dev):
+    """The MoE path's kernels at its shapes, logged beside the JSON line:
+    the decode of one expert stack of each shape (its device time with the
+    L2 cache flushed before each call: 63 MB of patterns and 63 MB of
+    values mostly stay in the 50 MB L2 between back-to-back calls), and the
+    KV-attention at D = 64, G = 3 over the lanes' cache (S = 96)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import CONFIGS
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels.posit_codec import (posit_decode,
+                                                 posit_decode_torch)
+    from repro_torch.kernels.posit_kv_attention import (
+        posit_kv_attention, posit_kv_attention_torch)
+    cfg = CONFIGS[MOE_ARCH]
+    p16 = get_format("posit16")
+    gen = torch.Generator().manual_seed(SEED + 8)
+    rows = []
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    flush = torch.empty(1 << 28, dtype=torch.uint8, device=dev)
+    for shape in ((E, d, f), (E, f, d)):
+        b = torch.randint(-2 ** 15, 2 ** 15, shape, generator=gen,
+                          dtype=torch.int16).to(dev)
+        rows.append(dict(
+            name="posit_decode", shape=[*shape, "int16->bf16"],
+            ms=cuda_ms(lambda: posit_decode(b, p16, torch.bfloat16)),
+            device_ms=device_ms(lambda: (flush.zero_(), posit_decode(
+                b, p16, torch.bfloat16)), "posit_decode_kernel"),
+            plain_ms=cuda_ms(lambda: posit_decode_torch(b, p16,
+                                                        torch.bfloat16),
+                             reps=2, samples=5),
+            bound_ms=b.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes", library_ms=None))
+    KV, D = cfg.n_kv_heads, cfg.resolved_head_dim
+    G = cfg.n_heads // KV
+    for name in ("posit8", "posit16"):
+        fmt = get_format(name)
+        S = 96
+        q, kb, vb = kv_case(gen, 4, S, KV, G, D, fmt, dev)
+        lengths = torch.full((4,), S, dtype=torch.int32, device=dev)
+        nbytes = (2 * q.numel() * 4 + 2 * kb.numel() * kb.element_size()
+                  + lengths.numel() * 4)
+        flops = 4 * 4 * KV * G * S * D
+        kf = posit_decode(kb, fmt).transpose(1, 2)
+        vf = posit_decode(vb, fmt).transpose(1, 2)
+        rows.append(dict(
+            name="posit_kv_attention", shape=[4, S, KV, D, G, name],
+            ms=cuda_ms(lambda: posit_kv_attention(q, kb, vb, lengths, fmt)),
+            device_ms=device_ms(
+                lambda: posit_kv_attention(q, kb, vb, lengths, fmt),
+                ("posit_kv_attention_kernel", "posit_kv_combine_kernel")),
+            plain_ms=cuda_ms(lambda: posit_kv_attention_torch(
+                q, kb, vb, lengths, fmt)),
+            bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                         flops / F32_FLOPS_PER_S) * 1e3,
+            bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                      >= flops / F32_FLOPS_PER_S else "operations"),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, kf, vf))))
+    return rows
+
+
+def run_moe_serve(dev, counters, card):
+    """Phase 5b: ``MOE_ARCH`` at full width behind ``ServingEngine`` with
+    phase 5's serve setup; returns the launch counts of the serve run."""
+    import gc
+    import torch
+    from repro_torch.configs import CONFIGS
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.quant import quantize_params
+    from repro_torch.kernels.counts import SERVE_PLAIN, PlainCalls
+    cfg = CONFIGS[MOE_ARCH]
+    per_pass = moe_decodes_per_pass(cfg)
+    log(f"  predicted weight decodes: {per_pass} a lane-step or prefill "
+        f"({cfg.n_layers} layers x (wq, wk, wv, wo + 3 expert stacks) + "
+        f"the embedding rows + the unembedding)")
+    torch.cuda.reset_peak_memory_stats()
+    with PlainCalls(SERVE_PLAIN) as plain:
+        (model, params, reqs, subs, comps, summary, wall, load, launches,
+         captured, peak) = run_serve(dev, cfg, counters)
+    by_rid = check_serve(cfg, subs, comps, summary, load, launches)
+    for name, n in plain.calls.items():
+        if n:
+            raise AssertionError(f"{name} ran {n} times on CUDA tensors "
+                                 f"while serving {MOE_ARCH}")
+    lanes = [r for lane, r in summary.items() if lane != "fleet"]
+    passes = sum(r["decode_steps"] + r["requests"] for r in lanes)
+    if launches["posit_decode"] != per_pass * passes:
+        raise AssertionError(f"posit_decode launched "
+                             f"{launches['posit_decode']} times for "
+                             f"{passes} lane-steps and prefills, not "
+                             f"{per_pass} each")
+    log(f"  launches at load (the weights' posit16 quantization, one "
+        f"prefill): {load}")
+    log(f"  {len(comps)} requests completed once each in {wall:.3f} s "
+        f"(host clock), peak {peak:.1f} GiB allocated; launches on the "
+        f"serve path: {launches}; weight decodes {per_pass} per lane-step "
+        f"and prefill, as predicted; plain versions on CUDA tensors: 0")
+    log_serve_ledger(summary, card)
+    check_live_kv(captured)
+    profile_serve(dev, model, params, reqs, by_rid, card)
+    qparams = quantize_params(params, get_format("posit16"),
+                              cast_rest=torch.bfloat16)
+    expert_decode_per_lane_step(cfg, qparams, card)
+    long_prefill(dev, model, qparams, card)
+    del model, params, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_reduced_on_card_and_cpu(dev, MOE_ARCH)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2315,45 +2673,6 @@ def ingest_fleet():
                           defer_rate=0.05, stall_after={INGEST_STALLED: 1})
 
 
-class PlainCalls:
-    """Counts the calls of the stream kernels' plain versions (and of the
-    torch round backend) that are given a CUDA tensor, while entered: on
-    the card every one of them must be 0, so a kernel that quietly fell
-    back to its plain version cannot pass."""
-
-    def __init__(self):
-        from repro_torch.apps import dsp
-        from repro_torch.core import arith
-        from repro_torch.kernels import posit_fft, posit_matmul, posit_round
-        self.sites = [(posit_round, "posit_round_torch"),
-                      (arith, "round_to_posit"),
-                      (posit_fft, "posit_fft_stages_torch"),
-                      (dsp, "posit_fft_stages_torch"),
-                      (posit_matmul, "posit_matmul_round_torch")]
-        self.calls = {f"{m.__name__}.{n}": 0 for m, n in self.sites}
-        self._saved = []
-
-    def __enter__(self):
-        import torch
-        for mod, name in self.sites:
-            real = getattr(mod, name)
-            key = f"{mod.__name__}.{name}"
-
-            def counted(*a, _real=real, _key=key, **kw):
-                if any(isinstance(t, torch.Tensor) and t.is_cuda
-                       for t in (*a, *kw.values())):
-                    self.calls[_key] += 1
-                return _real(*a, **kw)
-            self._saved.append((mod, name, real))
-            setattr(mod, name, counted)
-        return self
-
-    def __exit__(self, *exc):
-        for mod, name, real in self._saved:
-            setattr(mod, name, real)
-        self._saved = []
-
-
 def timed_dispatch(engine):
     """Record the host wall of each of ``engine``'s batch dispatches (each
     ends on its outputs' host copy)."""
@@ -2424,6 +2743,7 @@ def run_ingest(dev, forest, counters):
     launch counts are read over the TCP run alone."""
     import asyncio
     from repro_torch.ingest import Supervisor
+    from repro_torch.kernels.counts import PlainCalls
     from repro_torch.obs import MetricsRegistry, Tracer
     from repro_torch.stream import cough_pipeline, rpeak_pipeline
     pipelines = {"cough": cough_pipeline(forest), "rpeak": rpeak_pipeline()}
@@ -2590,6 +2910,177 @@ def check_ingest(run, dev, card):
     return run["launches"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the ingest worker pool on the card
+# ---------------------------------------------------------------------------
+
+def pool_reference(sim, pipelines, dev):
+    """``sim`` in process on one engine on the card, as the pool's workers
+    build theirs (``max_batch`` 16, ``pad_policy="max"``): (ledger
+    summary, per-patient digests, seconds of host clock)."""
+    from repro_torch.ingest import Supervisor
+    from repro_torch.ingest.workers import _result_digests
+    eng = ingest_engine(pipelines, dev)
+    t0 = time.perf_counter()
+    sim.run_inproc(eng)
+    wall = time.perf_counter() - t0
+    sup = Supervisor(eng, capacity=1 << 16)
+    sup.poll()
+    return eng.ledger.summary(), _result_digests(sup), wall
+
+
+class CardMemory:
+    """Samples, while entered, the card's used memory as this process's
+    context sees it (``torch.cuda.mem_get_info``) every 0.2 s; the rise to
+    its peak is the workers' (this process allocates nothing meanwhile).
+    ``nvidia-smi`` cannot split it by process here: in this container it
+    lists every process under one pid."""
+
+    def __init__(self):
+        import threading
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self.base = self.peak = 0
+
+    def _used(self):
+        import torch
+        free, total = torch.cuda.mem_get_info()
+        return total - free
+
+    def _run(self):
+        while not self._stop.wait(0.2):
+            self.peak = max(self.peak, self._used())
+
+    def __enter__(self):
+        self.base = self.peak = self._used()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+    def describe(self, n_workers):
+        per = (self.peak - self.base) / n_workers / 2 ** 20
+        return (f"the card's used memory rose by {per:.0f} MiB per worker "
+                f"at its peak (its CUDA context, libraries, decode tables "
+                f"and tensors)")
+
+
+def check_pool_kernel_calls(doc, kernels, what):
+    """Each worker's launch counts show ``kernels`` launched, the
+    butterfly not, and no plain version called on a CUDA tensor."""
+    for w in doc["workers"]:
+        calls = w["kernel_calls"]
+        for name in kernels:
+            if calls["launches"][name] <= 0:
+                raise AssertionError(f"{what}: worker {w['worker_id']} never "
+                                     f"launched {name}")
+        if calls["launches"]["posit_butterfly"] != 0:
+            raise AssertionError(f"{what}: worker {w['worker_id']} launched "
+                                 f"the butterfly")
+        for name, n in calls["plain_on_card"].items():
+            if n:
+                raise AssertionError(f"{what}: worker {w['worker_id']} ran "
+                                     f"{name} {n} times on CUDA tensors")
+
+
+def run_pool(dev, forest, card):
+    """Phase 8: (a) the reference suite's chaos acceptance run
+    (tests/test_chaos.py:339-368) on the card, every digest equal to the
+    in-process card run; (b) phase 7's mixed 64-patient fleet, fault-free,
+    through the pool, its ledger and digests equal to the in-process run."""
+    import shutil
+    from repro_torch.distributed import RestartPolicy
+    from repro_torch.ingest import ChaosPlan, FleetSimulator, run_worker_fleet
+    from repro_torch.stream import cough_pipeline, rpeak_pipeline
+
+    # (a) 64 ECG patients, worker 0 SIGKILLed, one partitioned, one corrupt
+    sim = FleetSimulator(n_patients=N_PATIENTS, windows=INGEST_WINDOWS,
+                         seed=SEED, mixed=False, n_cough=0)
+    _, want, _ = pool_reference(sim, {"rpeak": rpeak_pipeline()}, dev)
+    spill = ROOT / "build" / "pool_spill"
+    shutil.rmtree(spill, ignore_errors=True)
+    spill.mkdir(parents=True)
+    ecg = [p.patient for p in sim.plans]
+    with CardMemory() as mem:
+        doc = run_worker_fleet(
+            sim, POOL_WORKERS, max_batch=INGEST_MAX_BATCH,
+            realtime_factor=POOL_REALTIME, stall_timeout_s=POOL_STALL_S,
+            auth_secret="s3cret", spill_dir=str(spill),
+            chaos=ChaosPlan(kill_worker=0, kill_after_s=0.4,
+                            partition_patients=(ecg[-1],),
+                            partition_after_frames=2,
+                            corrupt_patients=(ecg[-2],), corrupt_at_frame=1),
+            restart_policy=RestartPolicy(max_restarts=3, backoff_s=0.05))
+    rec = doc["recovery"]
+    if doc["failed_workers"] or doc["windows"] != sim.expected_windows() \
+            or rec["worker_restarts"] < 1 or not rec["recovery_s"] \
+            or rec["client"]["partitions"] < 1 \
+            or rec["client"]["corrupted_frames"] < 1:
+        raise AssertionError(f"chaos pool: failed {doc['failed_workers']}, "
+                             f"{doc['windows']} windows, recovery {rec}")
+    bad = [p for p, d in want.items() if doc["digests"].get(p) != d]
+    if bad or set(doc["digests"]) != set(want):
+        raise AssertionError(f"chaos pool: digests differ from the "
+                             f"in-process card run for {bad}")
+    check_pool_kernel_calls(doc, ("posit_round",), "chaos pool")
+    log(f"  chaos pool: {doc['windows']} windows through {POOL_WORKERS} "
+        f"workers on the card, worker 0 SIGKILLed 0.4 s after its ready, "
+        f"{ecg[-1]} partitioned, {ecg[-2]} corrupted: every digest equal "
+        f"to the in-process card run; {rec['worker_restarts']} restart(s), "
+        f"recovery {[round(x, 3) for x in rec['recovery_s']]} s, replayed "
+        f"frames {doc['transport']['fleet'].get('replayed_frames', 0)}, "
+        f"client {rec['client']}; wall {doc['wall_s']:.3f} s ({card})")
+    log(f"  chaos pool memory: {mem.describe(POOL_WORKERS)} ({card})")
+    shutil.rmtree(spill, ignore_errors=True)
+
+    # (b) the mixed fleet, fault-free
+    sim = FleetSimulator(n_patients=N_PATIENTS, windows=INGEST_WINDOWS,
+                         seed=SEED, mixed=True)
+    summary, want, wall_in = pool_reference(
+        sim, {"cough": cough_pipeline(forest), "rpeak": rpeak_pipeline()},
+        dev)
+    with CardMemory() as mem:
+        doc = run_worker_fleet(sim, POOL_WORKERS, max_batch=INGEST_MAX_BATCH,
+                               stall_timeout_s=POOL_STALL_S)
+    if doc["failed_workers"]:
+        raise AssertionError(f"mixed pool: {doc['failed_workers']}")
+    groups = doc["groups"]
+    if set(groups) != set(summary):
+        raise AssertionError(f"mixed pool groups {sorted(groups)}, in "
+                             f"process {sorted(summary)}")
+    for key, row in summary.items():
+        g = groups[key]
+        if g["windows"] != row["windows"] or \
+                abs(g["total_nj"] - row["total_nj"]) > 1e-12 * abs(
+                    row["total_nj"]):
+            raise AssertionError(f"mixed pool {key}: {g['windows']} windows "
+                                 f"{g['total_nj']!r} nJ, in process "
+                                 f"{row['windows']} {row['total_nj']!r}")
+    bad = [p for p, d in want.items() if doc["digests"].get(p) != d]
+    if bad or set(doc["digests"]) != set(want):
+        raise AssertionError(f"mixed pool: digests differ from the "
+                             f"in-process card run for {bad}")
+    check_pool_kernel_calls(doc, ("posit_round", "posit_fft_stages",
+                                  "posit_matmul_round"), "mixed pool")
+    n = summary["fleet"]["windows"]
+    log(f"  mixed pool: {n} windows through {POOL_WORKERS} workers, every "
+        f"digest and the ledger's windows and total nJ "
+        f"({summary['fleet']['total_nj']!r}) equal to the in-process card "
+        f"run; {n / doc['wall_s']:.1f} windows/s over the pool "
+        f"({doc['wall_s']:.3f} s from every worker's ready), "
+        f"{n / wall_in:.1f} windows/s in process ({wall_in:.3f} s) (host "
+        f"clock, {card})")
+    for w in doc["workers"]:
+        stream = {k: w["kernel_calls"]["launches"][k]
+                  for k in ("posit_round", "posit_fft_stages",
+                            "posit_matmul_round", "posit_butterfly")}
+        log(f"  worker {w['worker_id']}: {w['windows']} windows, launches "
+            f"{stream}, plain versions on CUDA tensors 0")
+    log(f"  mixed pool memory: {mem.describe(POOL_WORKERS)} ({card})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2606,15 +3097,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     from repro_torch.apps.cough import train_reference_forest
     from repro_torch.kernels import build
-    from repro_torch.kernels.posit_codec import (posit_decode, posit_encode,
-                                                 posit_kv_append)
-    from repro_torch.kernels.posit_fft import posit_fft_stages
-    from repro_torch.kernels.posit_kv_attention import (
-        posit_kv_attention, posit_kv_attention_torch)
-    from repro_torch.kernels.posit_matmul import (posit_matmul,
-                                                  posit_matmul_round)
-    from repro_torch.kernels.posit_round import (posit_butterfly,
-                                                 posit_fma_round, posit_round)
+    from repro_torch.kernels.counts import wrappers
 
     dev = torch.device("cuda")
     card = card_line()
@@ -2691,15 +3174,13 @@ def main() -> int:
             source=f"{src}/csrc/posit_matmul.cu",
             replaces="src/repro/kernels/posit_matmul.py:57"),
     }
-    counters = (posit_round, posit_butterfly, posit_fft_stages,
-                posit_matmul_round, posit_decode, posit_encode,
-                posit_kv_append, posit_kv_attention, posit_fma_round,
-                posit_matmul)
+    counters = wrappers()
     stream_kernels = ("posit_round", "posit_fft_stages", "posit_matmul_round")
     phase("phase 2: kernels against their plain versions")
     shapes = check_kernels(dev, report)
     check_fft_stages(dev, report)
     check_serve_kernels(dev, report)
+    check_moe_kernels(dev, report)
     check_format_kernels(dev, report)
 
     phase("phase 3: stream path, 64-patient fleet")
@@ -2773,34 +3254,22 @@ def main() -> int:
     log(f"  {len(comps)} requests completed once each in {wall:.3f} s "
         f"(host clock), peak {peak:.1f} GiB allocated; launches on the "
         f"serve path: {launches}")
-    for lane, row in summary.items():
-        tok_s = 1e6 / row["us_per_token"] if row["us_per_token"] else 0.0
-        step_ms = (row["decode_tokens"] * row["us_per_token"] * 1e-3
-                   / row["decode_steps"] if row["decode_steps"] else 0.0)
-        prefill_ms = (row["prefill_tokens"] * row["prefill_us_per_token"]
-                      * 1e-3 / row["requests"] if row["requests"] else 0.0)
-        log(f"  ledger {lane}: {row['requests']} requests, "
-            f"{row['decode_tokens']} decode tokens in "
-            f"{row['decode_steps']} steps, {tok_s:.1f} tokens/s, "
-            f"{step_ms:.2f} ms per decode step, {prefill_ms:.2f} ms per "
-            f"prefill, {row['nj_per_token']:.1f} nJ/token, KV read "
-            f"{row['kv_read_bytes']:.0f} B ({card})")
-    q, kb, vb, lengths, fmt = captured
-    k = posit_kv_attention(q, kb, vb, lengths, fmt)
-    p = posit_kv_attention_torch(q, kb, vb, lengths, fmt)
-    torch.cuda.synchronize()
-    if not torch.allclose(k, p, **KV_TOL):
-        raise AssertionError(f"posit_kv_attention on the live layer-0 cache:"
-                             f" {max_abs_err(k, p):.3g} from its plain "
-                             f"version")
-    log(f"  posit_kv_attention on the live layer-0 cache "
-        f"{tuple(kb.shape)} {fmt.name}, lengths {lengths.tolist()}: within "
-        f"2e-5 of its plain version (max abs err {max_abs_err(k, p):.3g})")
+    log_serve_ledger(summary, card)
+    check_live_kv(captured)
     profile_serve(dev, model, params, reqs, by_rid, card)
     serve_kv_route_ab(dev, model, params, reqs, by_rid, card)
     del model, params
     torch.cuda.empty_cache()
     serve_reduced_on_card_and_cpu(dev)
+
+    phase(f"phase 5b: serve path, {MOE_ARCH} at full width, "
+          f"{2 * SERVE_PROMPTS} requests on two lanes, then a "
+          f"{LONG_PREFILL}-position prefill")
+    t0 = time.perf_counter()
+    run_moe_serve(dev, counters, card)
+    extra += time_moe_kernels(dev)
+    torch.cuda.empty_cache()
+    log(f"  phase 5b in {time.perf_counter() - t0:.1f} s ({card})")
 
     phase("phase 6: the format study, the quickstart and Arith.fma")
     t0 = time.perf_counter()
@@ -2816,6 +3285,12 @@ def main() -> int:
     t0 = time.perf_counter()
     check_ingest(run_ingest(dev, forest, counters), dev, card)
     log(f"  phase 7 in {time.perf_counter() - t0:.1f} s ({card})")
+
+    phase(f"phase 8: the ingest worker pool, {POOL_WORKERS} workers on the "
+          f"card")
+    t0 = time.perf_counter()
+    run_pool(dev, forest, card)
+    log(f"  phase 8 in {time.perf_counter() - t0:.1f} s ({card})")
     phase("done")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -50,7 +50,7 @@ class ChaosPlan:
     """Deterministic fault schedule for one chaos run.
 
     ``kill_worker``/``kill_after_s`` name a worker-pool member to SIGKILL
-    mid-stream (for the worker pool, not yet in the port: ROADMAP A2); the
+    mid-stream (``ingest.workers``' pool); the
     connection-level faults are applied inside ``run_tcp`` through the
     ``ReplayingClient`` chaos hooks; ``stall_pump_s`` freezes the supervisor consumer (the
     result-queue overflow → spill path's prey)."""

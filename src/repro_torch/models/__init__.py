@@ -1,6 +1,6 @@
-"""Model factory: ``ModelConfig.family`` → model class.  This slice of the
-port has the ``dense`` family; the others wait for later slices
-(ROADMAP.md, queue A item A3)."""
+"""Model factory: ``ModelConfig.family`` → model class.  The port has the
+``dense`` and ``moe`` families; ``vlm``, ``encdec``, ``ssm`` and ``hybrid``
+wait for later slices (ROADMAP.md, queue A item A3)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -8,7 +8,7 @@ from repro_torch.core.policy import QuantPolicy
 
 from .transformer import DecoderLM
 
-FAMILIES = {"dense": DecoderLM}
+FAMILIES = {"dense": DecoderLM, "moe": DecoderLM}
 
 
 def build_model(cfg: ModelConfig, policy: QuantPolicy = QuantPolicy(),

@@ -6,8 +6,10 @@ Every posit write of the cache goes through the KV-append kernel's
 wrapper (one launch a layer for K, V and every row) and every posit read
 through the decode kernel's; a decode step whose cache qualifies
 (``_fused_kv_eligible``) attends through the posit-KV attention kernel,
-which decodes K/V inside the kernel.  The blocked ``chunked_attention``
-waits for queue A item A3 and the training path for A5 (ROADMAP.md).
+which decodes K/V inside the kernel.  A prefill of more than 1024
+positions without ``lengths`` attends through the blocked online softmax
+(``chunked_attention``), as the reference's does.  The training path waits
+for queue A item A5 (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -26,8 +28,6 @@ from .common import dense, make_dense, param, rms_norm, rope, softcap, wval
 
 NEG_INF = -1e30
 BIG_WINDOW = 1 << 30
-_DEFERRED = ("waits for a later slice of the port (ROADMAP.md, queue A item "
-             "A3)")
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +157,65 @@ def plain_attention(q, k, v, *, causal, window, cap, q_offset=0,
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
+def chunked_attention(q, k, v, *, causal, window, cap,
+                      q_block=512, k_block=512, q_offset=0):
+    """Online-softmax blocked attention — never materializes (Sq, Skv).
+
+    Query blocks (outer) and key blocks (inner) with running (max, denom,
+    out) carries in f32, as the reference's: the logits and P·V of bf16
+    operands accumulate in f32, P is cast to V's dtype before P·V, and the
+    denominator sums the f32 P.
+    """
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    q_block = min(q_block, Sq)
+    k_block = min(k_block, Skv)
+    if Sq % q_block or Skv % k_block:
+        raise ValueError(f"chunked_attention: blocks ({q_block}, {k_block})"
+                         f" do not divide (Sq, Skv) = ({Sq}, {Skv})")
+    nq, nk = Sq // q_block, Skv // k_block
+    dev = q.device
+    qb = q.reshape(B, nq, q_block, KV, G, D)
+    kb = k.reshape(B, nk, k_block, KV, D)
+    vb = v.reshape(B, nk, k_block, KV, D)
+    scale = D ** -0.5
+    outs = []
+    for qi in range(nq):
+        q_blk = qb[:, qi].to(torch.float32)
+        qpos = q_offset + qi * q_block + torch.arange(q_block, device=dev)
+        m_run = torch.full((B, KV, G, q_block), NEG_INF, dtype=torch.float32,
+                           device=dev)
+        l_run = torch.zeros((B, KV, G, q_block), dtype=torch.float32,
+                            device=dev)
+        o_run = torch.zeros((B, KV, G, q_block, D), dtype=torch.float32,
+                            device=dev)
+        for kj in range(nk):
+            v_blk = vb[:, kj]
+            kpos = kj * k_block + torch.arange(k_block, device=dev)
+            logits = torch.einsum("bqkgd,bskd->bkgqs", q_blk,
+                                  kb[:, kj].to(torch.float32)) * scale
+            logits = softcap(logits, cap)
+            msk = (qpos[:, None] - kpos[None, :]) < window
+            if causal:
+                msk = msk & (kpos[None, :] <= qpos[:, None])
+            logits = torch.where(msk, logits, NEG_INF)
+            m_new = torch.maximum(m_run, logits.amax(dim=-1))
+            p = torch.exp(logits - m_new[..., None])
+            p = torch.where(msk, p, 0.0)
+            alpha = torch.exp(m_run - m_new)
+            l_run = l_run * alpha + p.sum(dim=-1)
+            pv = torch.einsum("bkgqs,bskd->bkgqd",
+                              p.to(v_blk.dtype).to(torch.float32),
+                              v_blk.to(torch.float32))
+            o_run = o_run * alpha[..., None] + pv
+            m_run = m_new
+        out = o_run / torch.clamp(l_run, min=1e-30)[..., None]
+        # (B, KV, G, q_block, D) → (B, q_block, H, D)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, q_block, H, D))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Attention layer (params + apply)
 # ---------------------------------------------------------------------------
@@ -204,11 +263,11 @@ def attention_prefill(p, x, cfg, cache: KVCache, *, window=BIG_WINDOW,
     q, k, v = _project_qkv(p, x, cfg, positions)
     cache = cache.append(k, v, new_length=lengths)
     if S > 1024 and lengths is None:
-        raise NotImplementedError(f"prefill of {S} > 1024 positions without "
-                                  f"lengths runs chunked_attention, which "
-                                  f"{_DEFERRED}")
-    out = plain_attention(q, k, v, causal=causal, window=window,
-                          cap=cfg.attn_softcap, kv_len=lengths)
+        out = chunked_attention(q, k, v, causal=causal, window=window,
+                                cap=cfg.attn_softcap)
+    else:
+        out = plain_attention(q, k, v, causal=causal, window=window,
+                              cap=cfg.attn_softcap, kv_len=lengths)
     return dense(p["wo"], out.reshape(B, S, -1)), cache
 
 

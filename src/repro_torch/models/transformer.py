@@ -1,12 +1,15 @@
-"""Decoder-only LM for the ``dense`` family (qwen, gemma2, granite) — the
-serving half of ``repro.models.transformer.DecoderLM``.
+"""Decoder-only LM for the ``dense`` (qwen, gemma2, granite) and ``moe``
+(granite-moe, dbrx) families — the serving half of
+``repro.models.transformer.DecoderLM``.
 
 A Python loop over the layers replaces ``lax.scan``; the per-layer
 parameters are views of the layer-stacked tree.  gemma2's logit softcaps,
 alternating local windows, sandwich norms and embedding scale are ported,
-so the plain decode route is exercised too.  The ``moe``/``vlm`` families
-and training (``loss``) wait for later slices (ROADMAP.md, queue A items
-A3 and A5).
+so the plain decode route is exercised too.  A ``moe`` layer runs
+``moe.moe_ffn`` where a dense one runs its FFN; serving drops the aux loss,
+as the reference's does.  The ``vlm`` family's vision frontend and
+training (``loss``) wait for later slices (ROADMAP.md, queue A items A3
+and A5).
 """
 from __future__ import annotations
 
@@ -23,19 +26,20 @@ from . import attention as attn
 from .common import (COMPUTE_DTYPE, embed, init_embedding, materialize,
                      param, rms_norm, unembed, unstack)
 from .mlp import ffn, init_ffn
+from .moe import init_moe, moe_ffn
 
 BIG_WINDOW = attn.BIG_WINDOW
 
 
 class DecoderLM:
-    """Dense decoder LM on one device (``None``: the card)."""
+    """Dense or MoE decoder LM on one device (``None``: the card)."""
 
     def __init__(self, cfg: ModelConfig, policy: QuantPolicy = QuantPolicy(),
                  device=None):
-        if cfg.family != "dense" or cfg.n_experts:
+        if cfg.frontend != "none":
             raise NotImplementedError(
-                f"DecoderLM family {cfg.family!r} is not ported yet "
-                f"(ROADMAP.md, queue A item A3)")
+                f"DecoderLM with the {cfg.frontend!r} frontend is not ported "
+                f"yet (ROADMAP.md, queue A item A3)")
         self.cfg = cfg
         self.policy = policy
         self.device = resolve_device(device)
@@ -51,7 +55,10 @@ class DecoderLM:
         if cfg.attn_softcap > 0:  # gemma2 sandwich norms
             p["ln1_post"] = param((cfg.d_model,), init="zeros")
             p["ln2_post"] = param((cfg.d_model,), init="zeros")
-        p["ffn"] = init_ffn(cfg)
+        if cfg.n_experts:
+            p["moe"] = init_moe(cfg)
+        else:
+            p["ffn"] = init_ffn(cfg)
         return p
 
     def init(self, gen: torch.Generator):
@@ -86,7 +93,11 @@ class DecoderLM:
         if "ln1_post" in lp:
             h = rms_norm(h, lp["ln1_post"])
         x = x + h
-        h = ffn(lp["ffn"], rms_norm(x, lp["ln2"]), self.cfg)
+        h = rms_norm(x, lp["ln2"])
+        if "moe" in lp:
+            h, _ = moe_ffn(lp["moe"], h, self.cfg)
+        else:
+            h = ffn(lp["ffn"], h, self.cfg)
         if "ln2_post" in lp:
             h = rms_norm(h, lp["ln2_post"])
         return self._act_quant(x + h), cache

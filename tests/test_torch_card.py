@@ -16,8 +16,11 @@ ones and in f64, the same bits on every call; the FFT stage-range kernel
 bitwise at the cough path's middle stages, whole FFTs of 4096 and 256
 points (two passes, an odd batch) and in f64, one launch per pass; the
 multiply-add at every element offset within 16 bytes, under row, column
-and host 0-d broadcasts; and a small ingest fleet over localhost TCP on
-the card, bitwise equal to the in-process run there.
+and host 0-d broadcasts; a small ingest fleet over localhost TCP on
+the card, bitwise equal to the in-process run there; the KV-attention and
+the expert-stack decode at granite-moe-3b-a800m's shapes, one MoE layer
+the same bits on a second call; and the ingest worker pool's workers on
+the card, their digests equal to the in-process run.
 """
 import numpy as np
 import pytest
@@ -663,3 +666,100 @@ def test_ingest_tcp_fleet_on_the_card_equals_inproc(dev):
         assert r.fmt == w.fmt
         for k, v in r.outputs.items():
             np.testing.assert_array_equal(v, w.outputs[k])
+
+
+@pytest.mark.parametrize("name", ["posit8", "posit16"])
+@pytest.mark.parametrize("S", [96, 2048])
+def test_kv_attention_granite_moe_geometry(name, S, dev):
+    """granite-moe-3b-a800m's heads: D = 64, 3 query rows per KV head over
+    8 KV heads, in one query group, within 2e-5 of the plain version."""
+    from repro_torch.kernels.posit_codec import posit_encode_torch
+    from repro_torch.kernels.posit_kv_attention import (
+        posit_kv_attention, posit_kv_attention_torch, query_groups)
+    fmt = get_format(name)
+    B, KV, G, D = 4, 8, 3, 64
+    assert query_groups(G, D) == (3, 1)
+    g = torch.Generator().manual_seed(14)
+    q = torch.randn(B, KV, G, D, generator=g).to(dev)
+    kb, vb = (posit_encode_torch(torch.randn(B, S, KV, D, generator=g),
+                                 fmt).to(dev) for _ in range(2))
+    lengths = torch.tensor([1, S // 3, S - 1, S], dtype=torch.int32,
+                           device=dev)
+    k = posit_kv_attention(q, kb, vb, lengths, fmt)
+    p = posit_kv_attention_torch(q, kb, vb, lengths, fmt)
+    assert torch.allclose(k, p, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", [(40, 1536, 512), (40, 512, 1536)])
+def test_decode_kernel_expert_stacks_bitwise(shape, dev):
+    """The decode of a whole expert stack (granite-moe-3b-a800m's gate/up
+    and down), int16 posit16 bits to bf16, bitwise."""
+    from repro_torch.kernels.posit_codec import (posit_decode,
+                                                 posit_decode_torch)
+    fmt = get_format("posit16")
+    g = torch.Generator().manual_seed(15)
+    bits = torch.randint(-2 ** 15, 2 ** 15, shape, generator=g,
+                         dtype=torch.int16).to(dev)
+    before = posit_decode.launches
+    k = posit_decode(bits, fmt, torch.bfloat16)
+    assert posit_decode.launches == before + 1
+    assert _nan_aware_equal(k, posit_decode_torch(bits, fmt,
+                                                  torch.bfloat16))
+
+
+@pytest.mark.parametrize("B,S", [(4, 1), (1, 64), (2, 96)])
+def test_moe_layer_same_bits_twice_and_near_the_cpu(B, S, dev):
+    """One MoE layer of the reduced granite-moe-3b-a800m with posit16
+    expert stacks: a second call on the card gives the same bits (the
+    combine adds in a fixed order, without atomics), the expert decodes
+    take the decode kernel, and the output is within 2e-2 of the CPU's on
+    the same weights and inputs."""
+    from repro_torch.configs import CONFIGS, reduced
+    from repro_torch.core.quant import quantize_params
+    from repro_torch.kernels.posit_codec import posit_decode
+    from repro_torch.models.common import materialize, to_device
+    from repro_torch.models.moe import init_moe, moe_ffn
+    cfg = reduced(CONFIGS["granite-moe-3b-a800m"])
+    layer = quantize_params({"moe": materialize(
+        init_moe(cfg), torch.Generator().manual_seed(16),
+        torch.device("cpu"))}, get_format("posit16"))["moe"]
+    x = torch.randn(B, S, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(17)).to(torch.bfloat16)
+    on_card = to_device(layer, dev)
+    before = posit_decode.launches
+    out1, aux1 = moe_ffn(on_card, x.to(dev), cfg)
+    assert posit_decode.launches == before + 3
+    out2, aux2 = moe_ffn(on_card, x.to(dev), cfg)
+    assert torch.equal(out1.view(torch.int16), out2.view(torch.int16))
+    assert torch.equal(aux1.view(torch.int32), aux2.view(torch.int32))
+    cpu, cpu_aux = moe_ffn(layer, x, cfg)
+    assert torch.allclose(out1.float().cpu(), cpu.float(), rtol=2e-2,
+                          atol=2e-2)
+    assert abs(float(aux1) - float(cpu_aux)) <= 1e-6
+
+
+def test_worker_pool_on_the_card_equals_inproc(dev):
+    """Two pool workers, each with its own CUDA context, score a small ECG
+    fleet on the card: every digest equal to the in-process card run, the
+    round kernel launched in each worker and no plain version called on a
+    CUDA tensor there."""
+    from repro_torch.ingest import (FleetSimulator, Supervisor,
+                                    run_worker_fleet)
+    from repro_torch.ingest.workers import _result_digests
+    from repro_torch.stream import StreamEngine, rpeak_pipeline
+
+    def sim():
+        return FleetSimulator(n_patients=8, windows=2, seed=6, mixed=False,
+                              n_cough=0)
+    ref = StreamEngine({"rpeak": rpeak_pipeline()}, max_batch=8,
+                       pad_policy="max", result_capacity=None, device=dev)
+    sim().run_inproc(ref)
+    sup = Supervisor(ref, capacity=1 << 12)
+    sup.poll()
+    want = _result_digests(sup)
+    doc = run_worker_fleet(sim(), 2, max_batch=8)
+    assert doc["failed_workers"] == [] and doc["windows"] == 16
+    assert doc["digests"] == want
+    for w in doc["workers"]:
+        assert w["kernel_calls"]["launches"]["posit_round"] > 0
+        assert not any(w["kernel_calls"]["plain_on_card"].values())

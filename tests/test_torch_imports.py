@@ -1,13 +1,15 @@
 """The port stands alone and runs on the card unless told otherwise.
 
 * With ``jax`` and ``repro`` blocked, ``repro_torch`` and every sub-module
-  import, and so do the modules ``chip_smoke.py`` imports.
+  import, and so do the modules ``chip_smoke.py`` imports and the worker
+  pool's, the restart policy's and the MoE layer's public names.
 * No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
   ``jax`` or ``repro`` (an AST scan).
 * Entry points (the stream engine and window cores, ``build_model``,
   ``ServingEngine``, ``python -m repro_torch.launch.serve``, the
-  quickstart and the format study) resolve ``device=None`` to the card and
-  raise without CUDA; ``device="cpu"`` runs on the CPU.
+  quickstart, the format study and the worker pool) resolve
+  ``device=None`` to the card and raise without CUDA; ``device="cpu"``
+  runs on the CPU.
 * Every registered format makes an ``Arith`` and the quire switch
   round-trips.
 * A CPU tensor never reaches the kernel loader, under any backend.
@@ -31,6 +33,7 @@ from repro_torch.core.arith import (Arith, backend_overrides, get_quire,
                                     get_round_backend, set_quire)
 from repro_torch.core.formats import ALL_FORMATS, FloatFormat
 from repro_torch.kernels import build, ops
+from repro_torch.ingest import FleetSimulator, run_worker_fleet
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import build_model
 from repro_torch.serve import ServeConfig, ServingEngine
@@ -74,6 +77,27 @@ def test_imports_with_jax_and_repro_blocked():
     assert out.stdout.startswith("ok")
 
 
+def test_slice_names_import_with_jax_and_repro_blocked():
+    """The worker pool, the fault-tolerance layer and the MoE module by the
+    names the reference exports them under."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "from repro_torch.ingest import (WorkerConfig, aggregate_rollup,\n"
+        "                                partition_plans, run_worker_fleet)\n"
+        "from repro_torch.ingest.workers import worker_main\n"
+        "from repro_torch.distributed import RestartPolicy\n"
+        "from repro_torch.distributed.fault_tolerance import (\n"
+        "    RestartPolicy, StepWatchdog, run_with_restarts)\n"
+        "from repro_torch.models.moe import init_moe, moe_ffn\n"
+        "from repro_torch.models.attention import chunked_attention\n"
+        "print('ok')\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
 def test_no_jax_or_repro_imports(path):
     tree = ast.parse(path.read_text())
@@ -109,8 +133,14 @@ def _serving_engine(dev):
         ["--arch", "qwen3-8b", "--requests", "1", "--new-tokens", "2"]
         + ([] if dev is None else ["--device", dev])),
     lambda dev: quickstart.main([] if dev is None else ["--device", dev]),
+    lambda dev: build_model(reduced(CONFIGS["granite-moe-3b-a800m"]),
+                            device=dev),
+    lambda dev: run_worker_fleet(
+        FleetSimulator(n_patients=2, windows=1, mixed=False, n_cough=0), 1,
+        max_batch=2, device=dev),
 ], ids=["StreamEngine", "make_cough_scorer", "detect_rpeaks", "build_model",
-        "ServingEngine", "launch.serve", "quickstart"])
+        "ServingEngine", "launch.serve", "quickstart", "build_model_moe",
+        "run_worker_fleet"])
 def test_entry_points_need_the_card_unless_told(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
