@@ -677,9 +677,8 @@ def check_serve_kernels(dev, report):
                                                  posit_decode_torch,
                                                  posit_encode,
                                                  posit_encode_torch)
-    from repro_torch.kernels.posit_kv_attention import (
-        kv_split_plan, posit_kv_attention, posit_kv_attention_torch,
-        query_groups)
+    from repro_torch.kernels.posit_kv_attention import (kv_split_plan,
+                                                        query_groups)
     gen = torch.Generator().manual_seed(SEED + 2)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -762,43 +761,46 @@ def check_serve_kernels(dev, report):
     for name in ("posit8", "posit16"):
         fmt = get_format(name)
         for S in (96, 32768):
-            q, kb, vb = kv_case(gen, 4, S, 8, 4, 128, fmt, dev)
-            lengths = torch.tensor([0, 1, 777, S], dtype=torch.int32,
-                                   device=dev)
-            k = posit_kv_attention(q, kb, vb, lengths, fmt)
-            p = posit_kv_attention_torch(q, kb, vb, lengths, fmt)
-            torch.cuda.synchronize()
-            if not torch.allclose(k, p, **KV_TOL):
-                raise AssertionError(f"posit_kv_attention {name} S={S}: "
-                                     f"{max_abs_err(k, p)} from its plain "
-                                     f"version")
-            if not torch.all(k[0] == 0):
-                raise AssertionError("posit_kv_attention: length 0 row is "
-                                     "not zero")
-            err = max(err, max_abs_err(k, p))
+            lengths = [0, 1, 777, S]
+            e = check_kv_attention(gen, fmt, S, 8, 4, 128, lengths, dev)
+            err = max(err, e)
             log(f"  posit_kv_attention {name} (4, {S}, 8, 128) lengths "
-                f"{lengths.tolist()}, plan (bs, key blocks, blocks per "
-                f"split, splits) {kv_split_plan(S, 512, 32, sms)}: within "
-                f"2e-5, max abs err {max_abs_err(k, p):.3g}")
+                f"{lengths}, plan (bs, key blocks, blocks per split, splits) "
+                f"{kv_split_plan(S, 512, 32, sms)}: within 2e-5, max abs "
+                f"err {e:.3g}")
         # granite-20b's 48 query rows over one KV head, D = 128
         for S in (96, 4096):
-            q, kb, vb = kv_case(gen, 4, S, 1, 48, 128, fmt, dev)
-            lengths = torch.tensor([1, S // 3, S - 1, S], dtype=torch.int32,
-                                   device=dev)
-            k = posit_kv_attention(q, kb, vb, lengths, fmt)
-            p = posit_kv_attention_torch(q, kb, vb, lengths, fmt)
-            torch.cuda.synchronize()
-            if not torch.allclose(k, p, **KV_TOL):
-                raise AssertionError(f"posit_kv_attention {name} G=48 S={S}:"
-                                     f" {max_abs_err(k, p)} from its plain "
-                                     f"version")
-            err = max(err, max_abs_err(k, p))
+            e = check_kv_attention(gen, fmt, S, 1, 48, 128,
+                                   [1, S // 3, S - 1, S], dev)
+            err = max(err, e)
             log(f"  posit_kv_attention {name} q (4, 1, 48, 128), K/V (4, "
                 f"{S}, 1, 128), query groups (rows, groups) "
                 f"{query_groups(48, 128)}, splits "
                 f"{kv_split_plan(S, 512, 4, sms)[3]}: within 2e-5, max abs "
-                f"err {max_abs_err(k, p):.3g}")
+                f"err {e:.3g}")
     report["posit_kv_attention"]["max_abs_err"] = err
+
+
+def check_kv_attention(gen, fmt, S, KV, G, D, lengths, dev):
+    """The KV-attention within ``KV_TOL`` of its plain version on random q
+    (4, KV, G, D) and posit K/V (4, S, KV, D) with per-row ``lengths``, a
+    row of length 0 all zeros; returns the max abs err."""
+    import torch
+    from repro_torch.kernels.posit_kv_attention import (
+        posit_kv_attention, posit_kv_attention_torch)
+    q, kb, vb = kv_case(gen, 4, S, KV, G, D, fmt, dev)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    k = posit_kv_attention(q, kb, vb, lengths, fmt)
+    p = posit_kv_attention_torch(q, kb, vb, lengths, fmt)
+    torch.cuda.synchronize()
+    err = max_abs_err(k, p)
+    if not torch.allclose(k, p, **KV_TOL):
+        raise AssertionError(f"posit_kv_attention {fmt.name} KV={KV} G={G} "
+                             f"D={D} S={S}: {err} from its plain version")
+    if not torch.all(k[lengths == 0] == 0):
+        raise AssertionError("posit_kv_attention: a length 0 row is not "
+                             "zero")
+    return err
 
 
 def kv_append_case(gen, fmt, in_dtype, B, cap, KV, D, s_new, dev):
@@ -818,29 +820,29 @@ def kv_append_case(gen, fmt, in_dtype, B, cap, KV, D, s_new, dev):
     return store, rows
 
 
-def check_kv_append(dev, gen, report):
-    """The KV append bitwise against its plain version at the serve shape
-    (B = 4, cap = 96, KV = 8, D = 128) in its three modes, posit8 and
-    posit16, bf16 and f32 rows, and at a row width of 12 (one value a
-    thread); one launch a call; the other layer and a dropped row
-    untouched."""
+def check_kv_append(dev, gen, report, KV=8, D=128):
+    """The KV append bitwise against its plain version at a serve shape
+    (B = 4, cap = 96, ``KV`` heads of ``D``: its thread -> element map
+    follows the row width) in its three modes, posit8 and posit16, bf16
+    and f32 rows, and at a row width of 12 (one value a thread); one launch
+    a call; the other layer and a dropped row untouched."""
     import torch
     from repro_torch.core.formats import get_format
     from repro_torch.kernels.posit_codec import (posit_kv_append,
                                                  posit_kv_append_torch)
     B, cap = 4, 96
-    modes = {"per-row decode": (1, 8, 128, [0, cap - 1, cap, 17]),
-             "per-row prefill": (37, 8, 128, [0, 0, 0, 0]),
-             "scalar length": (5, 8, 128, 40),
-             "scalar length, clamped": (9, 8, 128, cap - 3),
+    modes = {"per-row decode": (1, KV, D, [0, cap - 1, cap, 17]),
+             "per-row prefill": (37, KV, D, [0, 0, 0, 0]),
+             "scalar length": (5, KV, D, 40),
+             "scalar length, clamped": (9, KV, D, cap - 3),
              "per-row decode, row width 12": (1, 3, 4, [3, 0, cap, 95])}
     n = 0
     for name in ("posit8", "posit16"):
         fmt = get_format(name)
         for in_dtype in (torch.bfloat16, torch.float32):
-            for mode, (s_new, KV, D, length) in modes.items():
+            for mode, (s_new, kv, d, length) in modes.items():
                 store, (k_new, v_new) = kv_append_case(
-                    gen, fmt, in_dtype, B, cap, KV, D, s_new, dev)
+                    gen, fmt, in_dtype, B, cap, kv, d, s_new, dev)
                 length = torch.tensor(length, dtype=torch.int32, device=dev)
                 orig = [t.clone() for t in store]
                 want = [t.clone() for t in store]
@@ -869,9 +871,9 @@ def check_kv_append(dev, gen, report):
                             f"posit_kv_append {name} {in_dtype} {mode}: "
                             f"wrote outside its positions")
                 n += 1
-    log(f"  posit_kv_append (4, 96, 8, 128) posit8/posit16, bf16/f32 rows, "
-        f"{', '.join(modes)}: {n} cases bitwise equal to the plain version, "
-        f"one launch each, unwritten positions untouched")
+    log(f"  posit_kv_append (4, 96, {KV}, {D}) posit8/posit16, bf16/f32 "
+        f"rows, {', '.join(modes)}: {n} cases bitwise equal to the plain "
+        f"version, one launch each, unwritten positions untouched")
     report["posit_kv_append"]["max_abs_err"] = 0.0
 
 
@@ -1730,17 +1732,20 @@ def moe_layer(cfg, gen, dev):
 def check_moe_kernels(dev, report):
     """Phase 2 at the MoE path's geometry (``MOE_ARCH``): the KV-attention
     at D = 64, G = 3 in posit8 and posit16 within 2e-5 of its plain version,
-    the decode of the expert stacks bitwise, and one MoE layer's output and
-    aux loss the same bits on a second call (the combine adds in a fixed
-    order, without atomics)."""
+    the KV append at KV = 8, D = 64 and the decode of the expert stacks
+    bitwise, the encode of a stacked expert weight at its load shape
+    bitwise, and one MoE layer's output and aux loss the same bits on a
+    second call (the combine adds in a fixed order, without atomics)."""
     import torch
     from repro_torch.configs import CONFIGS
     from repro_torch.core.formats import get_format
     from repro_torch.kernels.posit_codec import (posit_decode,
-                                                 posit_decode_torch)
-    from repro_torch.kernels.posit_kv_attention import (
-        posit_kv_attention, posit_kv_attention_torch, query_groups)
-    from repro_torch.models.moe import moe_ffn
+                                                 posit_decode_torch,
+                                                 posit_encode,
+                                                 posit_encode_torch)
+    from repro_torch.kernels.posit_kv_attention import query_groups
+    from repro_torch.models.common import materialize
+    from repro_torch.models.moe import init_moe, moe_ffn
     cfg = CONFIGS[MOE_ARCH]
     KV, D = cfg.n_kv_heads, cfg.resolved_head_dim
     G = cfg.n_heads // KV
@@ -1749,22 +1754,14 @@ def check_moe_kernels(dev, report):
     for name in ("posit8", "posit16"):
         fmt = get_format(name)
         for S in (96, LONG_PREFILL):
-            q, kb, vb = kv_case(gen, 4, S, KV, G, D, fmt, dev)
-            lengths = torch.tensor([1, S // 3, S - 1, S], dtype=torch.int32,
-                                   device=dev)
-            k = posit_kv_attention(q, kb, vb, lengths, fmt)
-            p = posit_kv_attention_torch(q, kb, vb, lengths, fmt)
-            torch.cuda.synchronize()
-            if not torch.allclose(k, p, **KV_TOL):
-                raise AssertionError(f"posit_kv_attention {name} G={G} "
-                                     f"D={D} S={S}: {max_abs_err(k, p)} "
-                                     f"from its plain version")
-            err = max(err, max_abs_err(k, p))
+            e = check_kv_attention(gen, fmt, S, KV, G, D,
+                                   [1, S // 3, S - 1, S], dev)
+            err = max(err, e)
             log(f"  posit_kv_attention {name} q (4, {KV}, {G}, {D}), K/V "
                 f"(4, {S}, {KV}, {D}) ({MOE_ARCH}), query groups "
-                f"{query_groups(G, D)}: within 2e-5, max abs err "
-                f"{max_abs_err(k, p):.3g}")
+                f"{query_groups(G, D)}: within 2e-5, max abs err {e:.3g}")
     report["posit_kv_attention"]["max_abs_err"] = err
+    check_kv_append(dev, gen, report, KV, D)
     p16 = get_format("posit16")
     E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
     for shape in ((E, d, f), (E, f, d)):
@@ -1777,8 +1774,23 @@ def check_moe_kernels(dev, report):
             raise AssertionError(f"posit_decode expert stack {shape}: not "
                                  f"bitwise equal to its plain version")
         log(f"  posit_decode expert stack {shape} int16 -> bf16: bitwise")
-    layer = moe_layer(cfg, torch.Generator(device=dev).manual_seed(SEED),
-                      dev)
+    # the encode at load takes each stacked expert weight whole: w_gate's
+    # (L, E, d, f) f32, drawn as the load draws it; the plain version is
+    # elementwise, so it is taken a layer at a time
+    card_gen = torch.Generator(device=dev).manual_seed(SEED)
+    w = materialize({"w": init_moe(cfg)["w_gate"]}, card_gen, dev,
+                    layers=cfg.n_layers)["w"]
+    k = posit_encode(w, p16)
+    for i in range(cfg.n_layers):
+        if not torch.equal(k[i], posit_encode_torch(w[i], p16)):
+            raise AssertionError(f"posit_encode of the stacked expert "
+                                 f"weight {tuple(w.shape)}, layer {i}: not "
+                                 f"bitwise equal to its plain version")
+    log(f"  posit_encode stacked expert weight {tuple(w.shape)} f32 -> "
+        f"posit16 ({w.numel()} values, one launch): bitwise")
+    del w, k
+    torch.cuda.empty_cache()
+    layer = moe_layer(cfg, card_gen.manual_seed(SEED), dev)
     for B, S in ((1, 64), (4, 1), (1, LONG_PREFILL)):
         x = (torch.randn(B, S, d, generator=gen)).to(torch.bfloat16).to(dev)
         out1, aux1 = moe_ffn(layer, x, cfg)
@@ -1840,34 +1852,42 @@ def check_live_kv(captured):
 
 
 def expert_decode_per_lane_step(cfg, params, card):
-    """The device time of one lane-step's expert-stack decodes (three a
-    layer, the reference's whole-weight decode), each stack timed alone at
-    its shape with the L2 cache flushed before every call (the serve path
-    finds each stack's patterns cold), beside their byte bound (every
-    pattern read and every bf16 value written once)."""
+    """The device time of one lane-step's expert-stack decodes: the real
+    per-layer stacks (three a layer, the reference's whole-weight decode)
+    decoded back to back in the serve path's order, each from its own
+    buffer and none kept, beside their byte bound (every pattern read and
+    every bf16 value written once).  Returns the row logged beside the
+    JSON line's, per stack."""
     import torch
+    from repro_torch.kernels.posit_codec import posit_decode_torch
     from repro_torch.models.common import wval
     moe = params["layers"]["moe"]
-    flush = torch.empty(1 << 28, dtype=torch.uint8,
-                        device=moe["w_gate"].bits.device)
-    ms, nbytes = 0.0, 0
-    for name in ("w_gate", "w_up", "w_down"):
-        leaf = moe[name][0]
+    leaves = [moe[name][i] for i in range(cfg.n_layers)
+              for name in ("w_gate", "w_up", "w_down")]
 
-        def cold(leaf=leaf):
-            flush.zero_()       # 256 MB: every L2 line is the flush's
-            return wval(leaf)
-        ms += device_ms(cold, "posit_decode_kernel")
-        nbytes += leaf.bits.numel() * (leaf.bits.element_size() + 2)
-    ms *= cfg.n_layers
-    nbytes *= cfg.n_layers
-    log(f"  expert-stack decode per lane-step: {3 * cfg.n_layers} launches,"
-        f" {ms:.3f} ms on the device (each stack timed alone, L2 flushed "
-        f"before each call) against a byte bound of "
-        f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms ({nbytes / 1e9:.2f} GB "
-        f"read and written) ({card})")
-    del flush
-    torch.cuda.empty_cache()
+    def lane_step():
+        for leaf in leaves:
+            wval(leaf)
+    n = len(leaves)
+    ms = cuda_ms(lane_step, reps=1, samples=11)
+    dev_ms = device_ms(lane_step, "posit_decode_kernel", reps=10)
+    nbytes = sum(leaf.bits.numel() * (leaf.bits.element_size() + 2)
+                 for leaf in leaves)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  expert-stack decode per lane-step: {n} launches back to back "
+        f"(each stack its own buffer, none kept), {ms:.3f} ms per "
+        f"lane-step, {dev_ms:.3f} ms of it on the device, against a byte "
+        f"bound of {bound:.3f} ms ({nbytes / 1e9:.2f} GB read and written; "
+        f"{dev_ms / bound * 100:.1f} % of it) ({card})")
+    one = leaves[0]
+    return dict(
+        name="posit_decode",
+        shape=[n, "stacks", *one.bits.shape, "int16->bf16", "back to back"],
+        ms=ms / n, device_ms=dev_ms / n,
+        plain_ms=cuda_ms(lambda: posit_decode_torch(one.bits, one.fmt,
+                                                    torch.bfloat16),
+                         reps=2, samples=5),
+        bound_ms=bound / n, bound_by="bytes", library_ms=None)
 
 
 def long_prefill(dev, model, qparams, card):
@@ -1918,70 +1938,25 @@ def long_prefill(dev, model, qparams, card):
 
 
 def time_moe_kernels(dev):
-    """The MoE path's kernels at its shapes, logged beside the JSON line:
-    the decode of one expert stack of each shape (its device time with the
-    L2 cache flushed before each call: 63 MB of patterns and 63 MB of
-    values mostly stay in the 50 MB L2 between back-to-back calls), and the
-    KV-attention at D = 64, G = 3 over the lanes' cache (S = 96)."""
+    """The KV-attention at the MoE path's geometry (D = 64, G = 3) over the
+    lanes' cache (S = 96), logged beside the JSON line.  The expert
+    stacks' decode is timed on the serve run's weights
+    (``expert_decode_per_lane_step``)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import CONFIGS
     from repro_torch.core.formats import get_format
-    from repro_torch.kernels.posit_codec import (posit_decode,
-                                                 posit_decode_torch)
-    from repro_torch.kernels.posit_kv_attention import (
-        posit_kv_attention, posit_kv_attention_torch)
     cfg = CONFIGS[MOE_ARCH]
-    p16 = get_format("posit16")
     gen = torch.Generator().manual_seed(SEED + 8)
-    rows = []
-    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
-    flush = torch.empty(1 << 28, dtype=torch.uint8, device=dev)
-    for shape in ((E, d, f), (E, f, d)):
-        b = torch.randint(-2 ** 15, 2 ** 15, shape, generator=gen,
-                          dtype=torch.int16).to(dev)
-        rows.append(dict(
-            name="posit_decode", shape=[*shape, "int16->bf16"],
-            ms=cuda_ms(lambda: posit_decode(b, p16, torch.bfloat16)),
-            device_ms=device_ms(lambda: (flush.zero_(), posit_decode(
-                b, p16, torch.bfloat16)), "posit_decode_kernel"),
-            plain_ms=cuda_ms(lambda: posit_decode_torch(b, p16,
-                                                        torch.bfloat16),
-                             reps=2, samples=5),
-            bound_ms=b.numel() * 4 / HBM_BYTES_PER_S * 1e3,
-            bound_by="bytes", library_ms=None))
     KV, D = cfg.n_kv_heads, cfg.resolved_head_dim
-    G = cfg.n_heads // KV
-    for name in ("posit8", "posit16"):
-        fmt = get_format(name)
-        S = 96
-        q, kb, vb = kv_case(gen, 4, S, KV, G, D, fmt, dev)
-        lengths = torch.full((4,), S, dtype=torch.int32, device=dev)
-        nbytes = (2 * q.numel() * 4 + 2 * kb.numel() * kb.element_size()
-                  + lengths.numel() * 4)
-        flops = 4 * 4 * KV * G * S * D
-        kf = posit_decode(kb, fmt).transpose(1, 2)
-        vf = posit_decode(vb, fmt).transpose(1, 2)
-        rows.append(dict(
-            name="posit_kv_attention", shape=[4, S, KV, D, G, name],
-            ms=cuda_ms(lambda: posit_kv_attention(q, kb, vb, lengths, fmt)),
-            device_ms=device_ms(
-                lambda: posit_kv_attention(q, kb, vb, lengths, fmt),
-                ("posit_kv_attention_kernel", "posit_kv_combine_kernel")),
-            plain_ms=cuda_ms(lambda: posit_kv_attention_torch(
-                q, kb, vb, lengths, fmt)),
-            bound_ms=max(nbytes / HBM_BYTES_PER_S,
-                         flops / F32_FLOPS_PER_S) * 1e3,
-            bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
-                      >= flops / F32_FLOPS_PER_S else "operations"),
-            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, kf, vf))))
-    return rows
+    return [kv_attention_row(gen, get_format(name), 96, KV,
+                             cfg.n_heads // KV, D, dev)
+            for name in ("posit8", "posit16")]
 
 
 def run_moe_serve(dev, counters, card):
     """Phase 5b: ``MOE_ARCH`` at full width behind ``ServingEngine`` with
-    phase 5's serve setup; returns the launch counts of the serve run."""
+    phase 5's serve setup; returns the timed row of the expert stacks'
+    decode."""
     import gc
     import torch
     from repro_torch.configs import CONFIGS
@@ -2020,13 +1995,13 @@ def run_moe_serve(dev, counters, card):
     profile_serve(dev, model, params, reqs, by_rid, card)
     qparams = quantize_params(params, get_format("posit16"),
                               cast_rest=torch.bfloat16)
-    expert_decode_per_lane_step(cfg, qparams, card)
+    row = expert_decode_per_lane_step(cfg, qparams, card)
     long_prefill(dev, model, qparams, card)
     del model, params, qparams
     gc.collect()
     torch.cuda.empty_cache()
     serve_reduced_on_card_and_cpu(dev, MOE_ARCH)
-    return launches
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2561,19 +2536,14 @@ def time_kv_append(dev, gen, report):
 def time_serve_kernels(dev, report):
     """The serve kernels at serve-path shapes: decode and encode of one
     (4096, 12288) FFN weight, the KV append of one layer, and the
-    KV-attention at the lanes' cache (S = 96) and at S = 32768.  The
-    KV-attention's library time is ``scaled_dot_product_attention`` on K/V
-    already decoded to f32 (the decode not counted).  Returns the rows
-    that are logged beside the JSON line's."""
+    KV-attention at the lanes' cache (S = 96) and at S = 32768.  Returns
+    the rows that are logged beside the JSON line's."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.core.formats import get_format
     from repro_torch.kernels.posit_codec import (posit_decode,
                                                  posit_decode_torch,
                                                  posit_encode,
                                                  posit_encode_torch)
-    from repro_torch.kernels.posit_kv_attention import (
-        posit_kv_attention, posit_kv_attention_torch)
     p16 = get_format("posit16")
     gen = torch.Generator().manual_seed(SEED + 3)
     rows = []
@@ -2625,37 +2595,49 @@ def time_serve_kernels(dev, report):
 
     for name, S in (("posit8", 96), ("posit16", 96), ("posit8", 32768),
                     ("posit16", 32768)):
-        fmt = get_format(name)
-        q, kb, vb = kv_case(gen, 4, S, 8, 4, 128, fmt, dev)
-        B, KV, G, D = q.shape
-        lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
-        nbytes = (2 * q.numel() * 4 + 2 * kb.numel() * kb.element_size()
-                  + lengths.numel() * 4)
-        flops = 4 * B * KV * G * S * D
-        kf = posit_decode(kb, fmt).transpose(1, 2)      # (B, KV, S, D)
-        vf = posit_decode(vb, fmt).transpose(1, 2)
-        mask = (torch.arange(S, device=dev)[None, :]
-                < lengths[:, None])[:, None, None, :]
-        slow = dict(reps=2, samples=5) if S > 1024 else {}
-        row = dict(
-            name="posit_kv_attention", shape=[B, S, KV, D, name],
-            ms=cuda_ms(lambda: posit_kv_attention(q, kb, vb, lengths, fmt)),
-            device_ms=device_ms(
-                lambda: posit_kv_attention(q, kb, vb, lengths, fmt),
-                ("posit_kv_attention_kernel", "posit_kv_combine_kernel")),
-            plain_ms=cuda_ms(lambda: posit_kv_attention_torch(
-                q, kb, vb, lengths, fmt), **slow),
-            bound_ms=max(nbytes / HBM_BYTES_PER_S,
-                         flops / F32_FLOPS_PER_S) * 1e3,
-            bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
-                      >= flops / F32_FLOPS_PER_S else "operations"),
-            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, kf, vf, attn_mask=mask)))
+        row = kv_attention_row(gen, get_format(name), S, 8, 4, 128, dev)
         if (name, S) == ("posit8", 96):     # the posit8 lane's cache
             report["posit_kv_attention"].update(row)
         else:
             rows.append(row)
     return rows
+
+
+def kv_attention_row(gen, fmt, S, KV, G, D, dev):
+    """One timed row of the KV-attention: q (4, KV, G, D), posit K/V (4, S,
+    KV, D) at full length.  Its library time is
+    ``scaled_dot_product_attention`` on K/V already decoded to f32 (the
+    decode not counted)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.posit_codec import posit_decode
+    from repro_torch.kernels.posit_kv_attention import (
+        posit_kv_attention, posit_kv_attention_torch)
+    q, kb, vb = kv_case(gen, 4, S, KV, G, D, fmt, dev)
+    B = q.shape[0]
+    lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+    nbytes = (2 * q.numel() * 4 + 2 * kb.numel() * kb.element_size()
+              + lengths.numel() * 4)
+    flops = 4 * B * KV * G * S * D
+    kf = posit_decode(kb, fmt).transpose(1, 2)      # (B, KV, S, D)
+    vf = posit_decode(vb, fmt).transpose(1, 2)
+    mask = (torch.arange(S, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    slow = dict(reps=2, samples=5) if S > 1024 else {}
+    return dict(
+        name="posit_kv_attention", shape=[B, S, KV, D, G, fmt.name],
+        ms=cuda_ms(lambda: posit_kv_attention(q, kb, vb, lengths, fmt)),
+        device_ms=device_ms(
+            lambda: posit_kv_attention(q, kb, vb, lengths, fmt),
+            ("posit_kv_attention_kernel", "posit_kv_combine_kernel")),
+        plain_ms=cuda_ms(lambda: posit_kv_attention_torch(
+            q, kb, vb, lengths, fmt), **slow),
+        bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                     flops / F32_FLOPS_PER_S) * 1e3,
+        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                  >= flops / F32_FLOPS_PER_S else "operations"),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, kf, vf, attn_mask=mask)))
 
 
 # ---------------------------------------------------------------------------
@@ -2968,21 +2950,18 @@ class CardMemory:
 
 
 def check_pool_kernel_calls(doc, kernels, what):
-    """Each worker's launch counts show ``kernels`` launched, the
-    butterfly not, and no plain version called on a CUDA tensor."""
+    """Each worker's launch counts show ``kernels`` launched and the
+    butterfly not.  (A worker that calls a stream kernel's plain version on
+    a CUDA tensor fails there: ``refuse_plain_on_card``.)"""
     for w in doc["workers"]:
         calls = w["kernel_calls"]
         for name in kernels:
-            if calls["launches"][name] <= 0:
+            if calls[name] <= 0:
                 raise AssertionError(f"{what}: worker {w['worker_id']} never "
                                      f"launched {name}")
-        if calls["launches"]["posit_butterfly"] != 0:
+        if calls["posit_butterfly"] != 0:
             raise AssertionError(f"{what}: worker {w['worker_id']} launched "
                                  f"the butterfly")
-        for name, n in calls["plain_on_card"].items():
-            if n:
-                raise AssertionError(f"{what}: worker {w['worker_id']} ran "
-                                     f"{name} {n} times on CUDA tensors")
 
 
 def run_pool(dev, forest, card):
@@ -3073,11 +3052,11 @@ def run_pool(dev, forest, card):
         f"{n / wall_in:.1f} windows/s in process ({wall_in:.3f} s) (host "
         f"clock, {card})")
     for w in doc["workers"]:
-        stream = {k: w["kernel_calls"]["launches"][k]
+        stream = {k: w["kernel_calls"][k]
                   for k in ("posit_round", "posit_fft_stages",
                             "posit_matmul_round", "posit_butterfly")}
         log(f"  worker {w['worker_id']}: {w['windows']} windows, launches "
-            f"{stream}, plain versions on CUDA tensors 0")
+            f"{stream}, no plain version on a CUDA tensor (refused there)")
     log(f"  mixed pool memory: {mem.describe(POOL_WORKERS)} ({card})")
 
 
@@ -3266,7 +3245,7 @@ def main() -> int:
           f"{2 * SERVE_PROMPTS} requests on two lanes, then a "
           f"{LONG_PREFILL}-position prefill")
     t0 = time.perf_counter()
-    run_moe_serve(dev, counters, card)
+    extra.append(run_moe_serve(dev, counters, card))
     extra += time_moe_kernels(dev)
     torch.cuda.empty_cache()
     log(f"  phase 5b in {time.perf_counter() - t0:.1f} s ({card})")
@@ -3309,5 +3288,27 @@ def main() -> int:
     return 0
 
 
+def refuse_plain_on_card() -> None:
+    """In a process that phase 8's pool spawns (it imports this script as
+    ``__mp_main__``), make each stream kernel's plain version raise when it
+    is given a CUDA tensor: a worker that fell back to one fails, and shows
+    in the pool's ``failed_workers``, instead of passing on its bits."""
+    import importlib
+    import torch
+    from repro_torch.kernels.counts import STREAM_PLAIN
+    for m, n in STREAM_PLAIN:
+        mod = importlib.import_module(m)
+
+        def refused(*a, _real=getattr(mod, n), _key=f"{m}.{n}", **kw):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda
+                   for t in (*a, *kw.values())):
+                raise AssertionError(f"{_key} called on a CUDA tensor in a "
+                                     f"pool worker")
+            return _real(*a, **kw)
+        setattr(mod, n, refused)
+
+
 if __name__ == "__main__":
     sys.exit(main())
+elif __name__ == "__mp_main__":
+    refuse_plain_on_card()

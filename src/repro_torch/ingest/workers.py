@@ -196,7 +196,7 @@ def _worker_payload(engine, supervisor, server,
         # segment (recoverable, counted separately)
         "digests": _result_digests(supervisor),
         # the port's own entry: this process's kernel launches while it
-        # served, and its plain versions' calls on a CUDA tensor
+        # served, by wrapper
         "kernel_calls": kernel_calls,
     }
 
@@ -238,7 +238,7 @@ def worker_main(cfg: WorkerConfig, conn) -> None:
     try:
         from repro_torch.ingest import IngestServer, SessionManager, Supervisor
         from repro_torch.ingest.spill import ResultSpill
-        from repro_torch.kernels.counts import (PlainCalls, launch_counts,
+        from repro_torch.kernels.counts import (launch_counts,
                                                 reset_launch_counts)
 
         engine = _build_engine(cfg)
@@ -293,10 +293,8 @@ def worker_main(cfg: WorkerConfig, conn) -> None:
                     await asyncio.sleep(0.02)
                 done[0] = True
                 await pump_task
-                payload = _worker_payload(
-                    engine, supervisor, srv,
-                    {"launches": launch_counts(),
-                     "plain_on_card": dict(plain.calls)})
+                payload = _worker_payload(engine, supervisor, srv,
+                                          launch_counts())
                 if spill is not None:
                     spill.close()
                 return payload
@@ -304,8 +302,7 @@ def worker_main(cfg: WorkerConfig, conn) -> None:
         # the launches counted are the serving run's, not the engine
         # build's (the forest's training runs on the device too)
         reset_launch_counts()
-        with PlainCalls() as plain:
-            payload = asyncio.run(serve())
+        payload = asyncio.run(serve())
         send(("result", payload))
     except BaseException as e:  # noqa: BLE001 — must cross the pipe
         try:

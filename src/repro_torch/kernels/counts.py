@@ -6,9 +6,8 @@ Every kernel wrapper counts its launches in ``<wrapper>.launches``
 sets them to 0.  ``PlainCalls`` counts, while entered, the calls of a
 path's plain versions (``STREAM_PLAIN``, ``SERVE_PLAIN``) given a tensor on
 the card: on the card each of them must stay 0, so a kernel that quietly
-fell back to its plain version shows.  The ingest
-worker pool ships both from every worker process
-(``repro_torch.ingest.workers``).
+fell back to its plain version shows.  The ingest worker pool ships each
+worker process's launch counts (``repro_torch.ingest.workers``).
 """
 from __future__ import annotations
 
