@@ -85,6 +85,24 @@ Phases, each fatal on failure:
      2048-position prefill without lengths (``chunked_attention``: finite
      logits, layer 0 within 1e-2 of ``plain_attention`` on the card), and
      the reduced config's logits on the card against the CPU's;
+  5c. the vlm family through the model API (``ServingEngine`` refuses it,
+     as the reference's does): internvl2-2b at full width (24 layers,
+     random weights from a seeded generator on the card, posit16), 4 rows
+     of 256 seeded f32 patch rows and 64 tokens, prefill and 32 greedy
+     decode steps on a posit8 and a posit16 KV lane: the launches of the
+     prefill and of every decode step as ``api_launches`` predicts, no
+     plain version called on a CUDA tensor, the greedy tokens reproduced
+     by a second run with 16 of its steps under ``torch.profiler`` (busy
+     share, device kernels per lane-step), ms per prefill and decode step
+     (host clock), tokens/s, card memory, and the reduced config's logits
+     on the card against the CPU's;
+  5d. the encdec family the same way: seamless-m4t-large-v2 at full width
+     (24 encoder and 24 decoder layers), 4 rows of 2048 seeded f32 frames
+     (the encoder through ``chunked_attention``, non-causal) and 16 BOS
+     tokens; with the cross K/V decode's device ms per step (in the
+     profiled window) and the prefill's cross K/V encodes beside their
+     byte bounds, and a decode step's whole cross-attention read of the
+     posit cross K/V on the device;
   6. the format study: R-peak F1 over nine formats and cough AUC over
      three on the card, the paper's orderings asserted, three formats'
      F1 card against CPU; the quickstart (one decode-fused matmul launch);
@@ -123,6 +141,11 @@ the KV-attention is held at S = 96 (one split) and S = 32768 (many).
 Phase 2 also holds, at granite-moe-3b-a800m's shapes, the KV-attention
 at D = 64, G = 3 (posit8 and posit16) within 2e-5, the expert stacks'
 decode bitwise, and one MoE layer's output the same bits on a second call.
+Phase 2 holds, at phases 5c's and 5d's shapes, the KV-attention at G = 2,
+D = 128 and G = 1, D = 64 within 2e-5, the KV append at KV = 16, D = 64 in
+its three modes and the encode and f32 decode at the cross K/V shape (4,
+2048, 16, 64) bitwise; phase 4 times them (and the KV-attention beside
+``scaled_dot_product_attention``).
 Phase 3's fleet pins every fourth cough patient to fp16.  Each phase
 prints its wall time.
 
@@ -170,6 +193,15 @@ SERVE_ARCH = "qwen3-8b"
 MOE_ARCH = "granite-moe-3b-a800m"   # phase 5b
 LONG_PREFILL = 2048            # phase 5b: a prefill without lengths
 CHUNKED_TOL = dict(rtol=1e-2, atol=1e-2)   # chunked vs plain, bf16 outputs
+VLM_ARCH = "internvl2-2b"      # phase 5c
+ENCDEC_ARCH = "seamless-m4t-large-v2"   # phase 5d
+API_BATCH = 4                  # phases 5c, 5d: rows of the batch
+VLM_PROMPT = 64                # phase 5c: tokens after the 256 patch rows
+ENCDEC_SRC = 2048              # phase 5d: source frames (the encoder
+                               # attends through chunked_attention)
+ENCDEC_BOS = 16                # phase 5d: BOS tokens primed at prefill
+API_STEPS = 32                 # phases 5c, 5d: greedy decode steps a lane
+API_PROFILE = (8, 24)          # decode steps profiled in the second run
 POOL_WORKERS = 2               # phase 8
 POOL_REALTIME = 8.0            # phase 8a: the drive lasts 0.5 s, so the kill
                                # 0.4 s after the worker's ready lands in it
@@ -1527,12 +1559,35 @@ def check_serve(cfg, subs, comps, summary, load, launches):
     return by_rid
 
 
+def reduced_batch(cfg):
+    """Four prompts of the reduced config from a numpy seed: ragged, with
+    their lengths, where the family is served by ``ServingEngine``; of 16
+    tokens after 8 f32 patch rows (vlm) or 12 f32 source frames (encdec),
+    whose prefill takes no lengths."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    if cfg.family == "vlm":
+        return {"tokens": rng.integers(1, cfg.vocab, (4, 16)),
+                "frontend": rng.normal(size=(4, cfg.frontend_len,
+                                             cfg.d_model))
+                .astype(np.float32)}
+    if cfg.family == "encdec":
+        return {"tokens": rng.integers(1, cfg.vocab, (4, 16)),
+                "frames": rng.normal(size=(4, 12, cfg.d_model))
+                .astype(np.float32)}
+    lens = np.array([5, 3, 9, 16], np.int32)
+    toks = np.zeros((4, 16), np.int64)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(1, cfg.vocab, n)
+    return {"tokens": toks, "lengths": lens}
+
+
 def serve_reduced_on_card_and_cpu(dev, arch=SERVE_ARCH):
     """The reduced config, run by the port on the card (the kernel route)
-    and on the CPU (the plain route) with the same weights: ragged prefill
-    and four decode steps fed the CPU's greedy tokens; logits within 2e-2
-    and the same greedy tokens wherever the top-2 margin exceeds 4e-2."""
-    import numpy as np
+    and on the CPU (the plain route) with the same weights: prefill
+    (``reduced_batch``) and four decode steps fed the CPU's greedy tokens;
+    logits within 2e-2 and the same greedy tokens wherever the top-2
+    margin exceeds 4e-2."""
     import torch
     from repro_torch.configs import CONFIGS, reduced
     from repro_torch.core.formats import get_format
@@ -1545,11 +1600,7 @@ def serve_reduced_on_card_and_cpu(dev, arch=SERVE_ARCH):
     cpu = build_model(cfg, AGGRESSIVE_POLICY, device="cpu")
     raw = tree_map(lambda t: t.numpy(),
                    cpu.init(torch.Generator().manual_seed(SEED)))
-    rng = np.random.default_rng(SEED)
-    lens = np.array([5, 3, 9, 16], np.int32)
-    toks = np.zeros((4, 16), np.int64)
-    for i, n in enumerate(lens):
-        toks[i, :n] = rng.integers(1, cfg.vocab, n)
+    batch = reduced_batch(cfg)
     outs = {}
     for d in ("cpu", dev):
         model = build_model(cfg, AGGRESSIVE_POLICY, device=d)
@@ -1557,8 +1608,8 @@ def serve_reduced_on_card_and_cpu(dev, arch=SERVE_ARCH):
                                  get_format("posit16"),
                                  cast_rest=torch.bfloat16)
         logits, caches = model.prefill(
-            params, {"tokens": torch.from_numpy(toks).to(d),
-                     "lengths": torch.from_numpy(lens).to(d)}, 24)
+            params, {k: torch.from_numpy(v).to(d) for k, v in batch.items()},
+            24)
         steps = [logits[:, -1].float().cpu()]
         for s in range(4):
             fed = outs["cpu"][s] if d != "cpu" else steps[-1]
@@ -1588,8 +1639,8 @@ def serve_reduced_on_card_and_cpu(dev, arch=SERVE_ARCH):
         n_clear += int(clear.sum())
     log(f"  reduced {arch} on the card vs the CPU: prefill + 4 decode "
         f"steps, logits within {worst:.3g}; greedy tokens equal in "
-        f"{n_equal} of {5 * len(lens)} ({n_clear} with a top-2 margin "
-        f"above 4e-2, all equal)")
+        f"{n_equal} of {5 * len(batch['tokens'])} ({n_clear} with a top-2 "
+        f"margin above 4e-2, all equal)")
 
 
 def profile_serve(dev, model, params, reqs, want, card):
@@ -2002,6 +2053,387 @@ def run_moe_serve(dev, counters, card):
     torch.cuda.empty_cache()
     serve_reduced_on_card_and_cpu(dev, MOE_ARCH)
     return row
+
+
+# ---------------------------------------------------------------------------
+# Phases 5c and 5d: the vlm and encdec families at full width through the
+# model API (prefill, then decode_step; ServingEngine refuses both)
+# ---------------------------------------------------------------------------
+
+def api_launches(cfg):
+    """(prefill, decode step): the serve wrappers' launches one prefill and
+    one decode step of ``cfg`` make under posit16 weights and a posit KV
+    cache, predicted from the model code.  A decoder pass decodes every
+    posit weight it uses once, plus the embedding's gathered rows and the
+    unembedding; an encdec prefill also runs the encoder, projects and
+    encodes every decoder layer's cross K/V, dequantizes them in the BOS
+    pass, and reads its self-attention cache whole there (S_new > 1 takes
+    the plain route); each of its decode steps dequantizes the cross K/V
+    again."""
+    L = cfg.n_layers
+    if cfg.family == "vlm":
+        per_pass = L * 7 + 2      # wq, wk, wv, wo, w_gate, w_up, w_down
+        return (dict(posit_decode=per_pass, posit_encode=0,
+                     posit_kv_append=L, posit_kv_attention=0),
+                dict(posit_decode=per_pass, posit_encode=0,
+                     posit_kv_append=L, posit_kv_attention=L))
+    dec = L * 8 + 2     # self wq, wk, wv, wo; cross wq, wo; w_up, w_down
+    enc = cfg.enc_layers * 6      # wq, wk, wv, wo, w_up, w_down
+    cross = 2 * L                 # the cross K and V of every layer
+    return (dict(posit_decode=enc + cross + dec + cross + 2 * L,
+                 posit_encode=cross, posit_kv_append=L,
+                 posit_kv_attention=0),
+            dict(posit_decode=dec + cross, posit_encode=0,
+                 posit_kv_append=L, posit_kv_attention=L))
+
+
+def api_batch(cfg, dev):
+    """Phase 5c's or 5d's batch, from seeded generators (the frames and
+    patch rows on the card), and the capacity given to prefill."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    if cfg.family == "vlm":
+        toks = rng.integers(1, cfg.vocab, (API_BATCH, VLM_PROMPT))
+        rows = ("frontend", (API_BATCH, cfg.frontend_len, cfg.d_model))
+        capacity = VLM_PROMPT + API_STEPS     # prefill adds the patch rows
+    else:
+        toks = rng.integers(1, cfg.vocab, (API_BATCH, ENCDEC_BOS))
+        rows = ("frames", (API_BATCH, ENCDEC_SRC, cfg.d_model))
+        capacity = ENCDEC_BOS + API_STEPS
+    return {"tokens": torch.from_numpy(toks).to(dev),
+            rows[0]: torch.randn(rows[1], generator=gen, device=dev)}, \
+        capacity
+
+
+def api_generate(model, params, batch, capacity, counters, prof=None):
+    """Greedy generation through the model API: one prefill, then
+    ``API_STEPS`` decode steps, each fed the last step's argmax and ending
+    on the host copy of its tokens (host clock).  With ``prof``, decode
+    steps ``API_PROFILE`` run under the profiler.  Returns the tokens
+    (B, steps + 1), the prefill's and each step's seconds, the launches of
+    the prefill and of the decode steps, the profiled window's wall and
+    the final decode state."""
+    import torch
+    vocab = model.cfg.vocab
+
+    def counts():
+        return {c.__name__: c.launches for c in counters}
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    logits, state = model.prefill(params, batch, capacity)
+    tok = logits[:, -1, :vocab].argmax(-1)
+    toks = [tok.cpu()]
+    out = dict(prefill_s=time.perf_counter() - t0, prefill=counts(),
+               step_s=[], window_s=0.0)
+    for c in counters:
+        c.launches = 0
+    for s in range(API_STEPS):
+        if prof is not None and s == API_PROFILE[0]:
+            prof.start()
+            tw = time.perf_counter()
+        t0 = time.perf_counter()
+        logits, state = model.decode_step(params, tok[:, None], state)
+        tok = logits[:, -1, :vocab].argmax(-1)
+        toks.append(tok.cpu())
+        out["step_s"].append(time.perf_counter() - t0)
+        if prof is not None and s == API_PROFILE[1] - 1:
+            out["window_s"] = time.perf_counter() - tw
+            prof.stop()
+    out.update(tokens=torch.stack(toks, 1), decode=counts(), state=state)
+    return out
+
+
+def check_api_launches(got, want, what):
+    for name, n in want.items():
+        if got[name] != n:
+            raise AssertionError(f"{what}: {name} launched {got[name]} "
+                                 f"times, predicted {n}")
+    other = {k: v for k, v in got.items() if k not in want and v}
+    if other:
+        raise AssertionError(f"{what}: other kernels launched: {other}")
+
+
+def decode_ms_by_output(prof, steps):
+    """Device ms per step of the decode kernel's f32-output launches (in a
+    decode step, the cross K/V's: the weights decode to bf16), from a
+    profile of ``steps`` decode steps; NaN if none was recorded."""
+    from torch.autograd import DeviceType
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and "posit_decode_kernel<" in e.key
+             and e.key.split("posit_decode_kernel<")[1].split(",")[1]
+             .strip() == "float")
+    return us / 1e3 / steps if us else float("nan")
+
+
+def cross_kv_codec(model, params, batch, cross, card):
+    """The encdec lane's cross K/V on the card outside a step: the
+    prefill's encodes of every layer's cross K and V projections (f32 in,
+    as ``quantize`` gives them), back to back, beside their byte bound
+    (every value read and every pattern written once); and the device
+    time and kernels of a decode step's whole cross-attention read of the
+    posit cross K/V (dequantize, cast to bf16, ``plain_attention`` of one
+    query row a layer), the work a kernel reading the posit bits would
+    replace."""
+    import torch
+    from repro_torch.kernels.posit_codec import posit_encode
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import unstack
+    cfg = model.cfg
+    fmt = cross[0][0].fmt
+    q = torch.randn(API_BATCH, 1, cfg.n_heads, cfg.resolved_head_dim,
+                    device=cross[0][0].bits.device).to(torch.bfloat16)
+
+    def attend():
+        for ck, cv in cross:
+            attn.plain_attention(
+                q, ck.dequant(torch.float32).to(q.dtype),
+                cv.dequant(torch.float32).to(q.dtype), causal=False,
+                window=attn.BIG_WINDOW, cap=0.0)
+    read_ms, read_kernels = device_kernels(attend, reps=5)
+    enc_out = model.encode(params, batch["frames"])
+    xs = [x.float() for lp in unstack(params["decoder"], cfg.n_layers)
+          for x in model._cross_kv(lp, enc_out)]
+    del enc_out
+
+    def encode_all():
+        for x in xs:
+            posit_encode(x, fmt)
+    enc_ms = device_ms(encode_all, "posit_encode_kernel", reps=5)
+    nbytes = sum(x.numel() * (4 + cross[0][0].bits.element_size())
+                 for x in xs)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  cross K/V {fmt.name}: the prefill's {len(xs)} encodes of "
+        f"{tuple(xs[0].shape)} {enc_ms:.3f} ms on the device against a "
+        f"byte bound of {bound:.3f} ms ({nbytes / 1e9:.2f} GB; "
+        f"{enc_ms / bound * 100:.1f} % of it); a decode step's whole "
+        f"cross-attention read (dequantize, cast, plain_attention) "
+        f"{read_ms:.3f} ms on the device in {read_kernels:g} kernels "
+        f"({card})")
+
+
+def run_model_api(dev, arch, counters, card):
+    """Phase 5c or 5d: ``arch`` at full width on seeded weights (f32 init,
+    then ``quantize_params`` to posit16), through prefill and
+    ``API_STEPS`` greedy decode steps on two KV lanes (posit8, posit16):
+    the launches of the prefill and of every decode step as predicted
+    (``api_launches``), no plain version called on a CUDA tensor, the
+    greedy tokens reproduced by a second run (decode steps ``API_PROFILE``
+    of it under the profiler: the device's busy share and kernels per
+    lane-step, and for encdec the cross K/V decode's device ms per step),
+    host-clock ms per prefill and per decode step, tokens/s and card
+    memory; for encdec the cross K/V codec timed beside its byte bound;
+    then the reduced config on the card against the CPU."""
+    import gc
+    import statistics as st
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import CONFIGS
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.quant import quantize_params
+    from repro_torch.kernels.counts import SERVE_PLAIN, PlainCalls
+    from repro_torch.models import build_model
+    cfg = CONFIGS[arch]
+    pre, step = api_launches(cfg)
+    log(f"  predicted launches: prefill {pre}; each decode step {step}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    raw = build_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    for c in counters:
+        c.launches = 0
+    params = quantize_params(raw, get_format("posit16"),
+                             cast_rest=torch.bfloat16)
+    torch.cuda.synchronize()
+    load = {c.__name__: c.launches for c in counters if c.launches}
+    del raw
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch, capacity = api_batch(cfg, dev)
+    log(f"  {cfg.name}: {cfg.n_layers} layers (+ {cfg.enc_layers} encoder"
+        f"), d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} "
+        f"KV of {cfg.resolved_head_dim}, vocab {cfg.padded_vocab}; f32 init"
+        f" + posit16 quantization in {time.perf_counter() - t0:.1f} s "
+        f"({load}), {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"allocated; batch {({k: tuple(v.shape) for k, v in batch.items()})}"
+        f", capacity {capacity}")
+    n_prof = API_PROFILE[1] - API_PROFILE[0]
+    for kv in ("posit8", "posit16"):
+        model = build_model(cfg, QuantPolicy(weights="posit16",
+                                             kv_cache=kv), device=dev)
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        with PlainCalls(SERVE_PLAIN) as plain:
+            run = api_generate(model, params, batch, capacity, counters)
+            del run["state"]
+            again = api_generate(model, params, batch, capacity, counters,
+                                 prof)
+        for name, n in plain.calls.items():
+            if n:
+                raise AssertionError(f"{name} ran {n} times on CUDA tensors "
+                                     f"in {arch} kv={kv}")
+        for r in (run, again):
+            check_api_launches(r["prefill"], pre, f"{arch} kv={kv} prefill")
+            check_api_launches(r["decode"], {k: v * API_STEPS
+                                             for k, v in step.items()},
+                               f"{arch} kv={kv} {API_STEPS} decode steps")
+        if not torch.equal(run["tokens"], again["tokens"]):
+            raise AssertionError(f"{arch} kv={kv}: a second run gave other "
+                                 f"greedy tokens")
+        ms = [s * 1e3 for s in run["step_s"]]
+        log(f"  {arch} kv={kv}: prefill {run['prefill_s'] * 1e3:.2f} ms "
+            f"(second run {again['prefill_s'] * 1e3:.2f}); decode step "
+            f"median {st.median(ms):.2f} ms (min {min(ms):.2f}, max "
+            f"{max(ms):.2f}); {API_BATCH * API_STEPS / sum(run['step_s']):.1f}"
+            f" tokens/s; launches as predicted in both runs; greedy tokens "
+            f"{tuple(run['tokens'].shape)} reproduced by the second run; "
+            f"plain versions on CUDA tensors: 0 ({card})")
+        report_busy(prof, again["window_s"], f"{arch} kv={kv}, decode steps "
+                    f"{API_PROFILE[0]}-{API_PROFILE[1] - 1} of the second "
+                    f"run under the profiler ({card})", 6)
+        on_card = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        if on_card:
+            log(f"  device kernels (kernels, copies, fills) per lane-step: "
+                f"{sum(e.count for e in on_card) / n_prof:.1f} ({card})")
+        if cfg.family == "encdec":
+            leaves = [t for pair in again["state"][1] for t in pair]
+            nbytes = sum(t.bits.numel() * (t.bits.element_size() + 4)
+                         for t in leaves)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            dec = decode_ms_by_output(prof, n_prof)
+            log(f"  cross K/V decode in that window: {dec:.3f} ms on the "
+                f"device per step ({len(leaves)} launches of "
+                f"{tuple(leaves[0].bits.shape)}, f32 out) against a byte "
+                f"bound of {bound:.3f} ms ({nbytes / 1e9:.2f} GB; "
+                f"{dec / bound * 100:.1f} % of it) ({card})")
+            cross_kv_codec(model, params, batch, again["state"][1], card)
+        del run, again, prof
+        gc.collect()
+    log(f"  card memory: peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+        f" GiB allocated, {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"held by the posit16 weights and batch ({card})")
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_reduced_on_card_and_cpu(dev, arch)
+
+
+def check_api_kernels(dev, report):
+    """Phase 2 at the vlm and encdec paths' geometry: the KV-attention at
+    internvl2-2b's heads (KV 8, G 2, D 128) and seamless-m4t-large-v2's
+    (KV 16, G 1, D 64), posit8 and posit16, within 2e-5; the KV append at
+    KV 16, D 64 in its three modes, bitwise; the encode and the f32 decode
+    at the cross K/V shape (4, 2048, 16, 64), bitwise, on the values the
+    path encodes (bf16 projections) and on random f32 with specials."""
+    import torch
+    from repro_torch.configs import CONFIGS
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels.posit_codec import (posit_decode,
+                                                 posit_decode_torch,
+                                                 posit_encode,
+                                                 posit_encode_torch)
+    from repro_torch.kernels.posit_kv_attention import query_groups
+    gen = torch.Generator().manual_seed(SEED + 9)
+    err = report["posit_kv_attention"].get("max_abs_err") or 0.0
+    vlm, encdec = CONFIGS[VLM_ARCH], CONFIGS[ENCDEC_ARCH]
+    for cfg, sizes in (
+            (vlm, (vlm.frontend_len + VLM_PROMPT + API_STEPS, 4096)),
+            (encdec, (ENCDEC_BOS + API_STEPS, ENCDEC_SRC))):
+        KV, D = cfg.n_kv_heads, cfg.resolved_head_dim
+        G = cfg.n_heads // KV
+        for name in ("posit8", "posit16"):
+            for S in sizes:
+                e = check_kv_attention(gen, get_format(name), S, KV, G, D,
+                                       [1, S // 3, S - 1, S], dev)
+                err = max(err, e)
+                log(f"  posit_kv_attention {name} q (4, {KV}, {G}, {D}), K/V"
+                    f" (4, {S}, {KV}, {D}) ({cfg.name}), query groups "
+                    f"{query_groups(G, D)}: within 2e-5, max abs err "
+                    f"{e:.3g}")
+    report["posit_kv_attention"]["max_abs_err"] = err
+    KV, D = encdec.n_kv_heads, encdec.resolved_head_dim
+    check_kv_append(dev, gen, report, KV, D)
+    shape = (API_BATCH, ENCDEC_SRC, KV, D)
+    n = API_BATCH * ENCDEC_SRC * KV * D
+    for what, x in (
+            ("bf16 projections",
+             torch.randn(shape, generator=gen).to(torch.bfloat16).float()
+             .to(dev)),
+            ("random f32 with specials",
+             random_f32(gen, n - 10, dev).reshape(shape))):
+        for name in ("posit8", "posit16"):
+            fmt = get_format(name)
+            k = posit_encode(x, fmt)
+            if not torch.equal(k, posit_encode_torch(x, fmt)):
+                raise AssertionError(f"posit_encode cross K/V {shape} "
+                                     f"{what} {name}: not bitwise")
+            if not nan_aware_equal(posit_decode(k, fmt),
+                                   posit_decode_torch(k, fmt)):
+                raise AssertionError(f"posit_decode cross K/V {shape} "
+                                     f"{what} {name} -> f32: not bitwise")
+        log(f"  posit_encode and posit_decode (f32 out) at the cross K/V "
+            f"shape {shape}, {what}, posit8 and posit16: bitwise")
+
+
+def time_api_kernels(dev):
+    """Phase 4 at the vlm and encdec paths' geometry: the KV-attention over
+    each path's full cache (internvl2-2b: 352 positions, KV 8, G 2, D 128;
+    seamless: 48, KV 16, G 1, D 64), the KV append of one seamless decode
+    step (KV 16, D 64, scalar length), and the cross K/V codec at (4,
+    2048, 16, 64): the decode to f32 and the encode from f32, posit8 and
+    posit16.  Returns the rows logged beside the JSON line's."""
+    import torch
+    from repro_torch.configs import CONFIGS
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels.posit_codec import (posit_decode,
+                                                 posit_decode_torch,
+                                                 posit_encode,
+                                                 posit_encode_torch)
+    gen = torch.Generator().manual_seed(SEED + 10)
+    vlm, encdec = CONFIGS[VLM_ARCH], CONFIGS[ENCDEC_ARCH]
+    rows = []
+    for cfg, S in ((vlm, vlm.frontend_len + VLM_PROMPT + API_STEPS),
+                   (encdec, ENCDEC_BOS + API_STEPS)):
+        KV, D = cfg.n_kv_heads, cfg.resolved_head_dim
+        for name in ("posit8", "posit16"):
+            rows.append(kv_attention_row(gen, get_format(name), S, KV,
+                                         cfg.n_heads // KV, D, dev))
+    KV, D = encdec.n_kv_heads, encdec.resolved_head_dim
+    shape = (API_BATCH, ENCDEC_SRC, KV, D)
+    x = torch.randn(shape, generator=gen).to(torch.bfloat16).float().to(dev)
+    for name in ("posit8", "posit16"):
+        fmt = get_format(name)
+        rows.append(kv_append_row(
+            dev, gen, fmt, ENCDEC_BOS + API_STEPS, KV, D,
+            torch.tensor(20, dtype=torch.int32, device=dev))[0])
+        bits = posit_encode(x, fmt)
+        e = bits.element_size()
+        rows.append(dict(
+            name="posit_decode", shape=[*shape, f"{name}->f32", "cross K/V"],
+            ms=cuda_ms(lambda: posit_decode(bits, fmt)),
+            device_ms=device_ms(lambda: posit_decode(bits, fmt),
+                                "posit_decode_kernel"),
+            plain_ms=cuda_ms(lambda: posit_decode_torch(bits, fmt), reps=2,
+                             samples=5),
+            bound_ms=x.numel() * (e + 4) / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes", library_ms=None))
+        rows.append(dict(
+            name="posit_encode", shape=[*shape, f"f32->{name}", "cross K/V"],
+            ms=cuda_ms(lambda: posit_encode(x, fmt)),
+            device_ms=device_ms(lambda: posit_encode(x, fmt),
+                                "posit_encode_kernel"),
+            plain_ms=cuda_ms(lambda: posit_encode_torch(x, fmt), reps=2,
+                             samples=5),
+            bound_ms=x.numel() * (4 + e) / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes", library_ms=None))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2480,40 +2912,49 @@ def earlier_kv_append(k_new, v_new, k_bits, v_bits, length, fmt):
                                       fmt), length)
 
 
+def kv_append_row(dev, gen, fmt, cap, KV, D, length):
+    """One timed row of the KV append, and the call's arguments: one
+    decode step's write of B = 4 bf16 rows of (``KV``, ``D``) into a
+    ``cap``-position posit cache at ``length`` (per-row or scalar): per
+    call (CUDA events), the append kernel's device time, and the device
+    time and kernels per call of every kernel of the call (``all_ms``,
+    ``device_kernels``)."""
+    import torch
+    from repro_torch.kernels.posit_codec import (posit_kv_append,
+                                                 posit_kv_append_torch)
+    B = 4
+    k_bits, v_bits = (torch.zeros(B, cap, KV, D, dtype=fmt.storage_dtype,
+                                  device=dev) for _ in range(2))
+    k_new, v_new = (torch.randn(B, 1, KV, D, generator=gen)
+                    .to(torch.bfloat16).to(dev) for _ in range(2))
+    args = (k_new, v_new, k_bits, v_bits, length, fmt)
+    nbytes = (2 * k_new.numel() * (2 + k_bits.element_size())
+              + length.numel() * 4)
+    all_ms, kernels = device_kernels(lambda: posit_kv_append(*args))
+    return dict(
+        name="posit_kv_append", shape=[B, 1, KV, D, f"bf16->{fmt.name}"],
+        ms=cuda_ms(lambda: posit_kv_append(*args)),
+        device_ms=device_ms(lambda: posit_kv_append(*args),
+                            "posit_kv_append_kernel"),
+        all_ms=all_ms, device_kernels=kernels,
+        plain_ms=cuda_ms(lambda: posit_kv_append_torch(*args)),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None), args
+
+
 def time_kv_append(dev, gen, report):
     """The KV append at one layer's decode write on the serve path (B = 4
     slots, KV = 8, D = 128, bf16 rows, per-row lengths, a 96-position
-    cache), posit8 and posit16, beside the earlier route: per call (CUDA
-    events), the append kernel's device time (``device_ms``), and the
-    device time and kernels per call of every kernel of the call
-    (``device_kernels``).  Returns the rows logged beside the JSON
-    line's."""
+    cache), posit8 and posit16, beside the earlier route, each with its
+    device kernels per call (``kv_append_row``).  Returns the rows logged
+    beside the JSON line's."""
     import torch
     from repro_torch.core.formats import get_format
-    from repro_torch.kernels.posit_codec import (posit_kv_append,
-                                                 posit_kv_append_torch)
     rows = []
-    B, cap, KV, D = 4, 96, 8, 128
     length = torch.tensor([10, 50, 94, 95], dtype=torch.int32, device=dev)
     for name in ("posit8", "posit16"):
-        fmt = get_format(name)
-        k_bits, v_bits = (torch.zeros(B, cap, KV, D, dtype=fmt.storage_dtype,
-                                      device=dev) for _ in range(2))
-        k_new, v_new = (torch.randn(B, 1, KV, D, generator=gen)
-                        .to(torch.bfloat16).to(dev) for _ in range(2))
-        args = (k_new, v_new, k_bits, v_bits, length, fmt)
-        nbytes = (2 * k_new.numel() * (2 + k_bits.element_size())
-                  + length.numel() * 4)
-        all_ms, kernels = device_kernels(lambda: posit_kv_append(*args))
-        dev_ms = device_ms(lambda: posit_kv_append(*args),
-                           "posit_kv_append_kernel")
-        row = dict(
-            name="posit_kv_append", shape=[B, 1, KV, D, f"bf16->{name}"],
-            ms=cuda_ms(lambda: posit_kv_append(*args)), device_ms=dev_ms,
-            device_kernels=kernels,
-            plain_ms=cuda_ms(lambda: posit_kv_append_torch(*args)),
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            library_ms=None)
+        row, args = kv_append_row(dev, gen, get_format(name), 96, 8, 128,
+                                  length)
         e_ms, e_kernels = device_kernels(lambda: earlier_kv_append(*args))
         earlier = dict(
             name="earlier_kv_append", shape=row["shape"],
@@ -2521,10 +2962,11 @@ def time_kv_append(dev, gen, report):
             device_kernels=e_kernels, plain_ms=None,
             bound_ms=row["bound_ms"], bound_by="bytes", library_ms=None)
         log(f"  KV write {name}: the append kernel {row['ms']:.4f} ms per "
-            f"call, {dev_ms:.4f} ms on the device ({all_ms:.4f} ms and "
-            f"{kernels:g} kernels of every device event per call); the "
-            f"earlier route {earlier['ms']:.4f} ms per call, {e_ms:.4f} ms "
-            f"and {e_kernels:g} kernels on the device")
+            f"call, {row['device_ms']:.4f} ms on the device "
+            f"({row['all_ms']:.4f} ms and {row['device_kernels']:g} "
+            f"kernels of every device event per call); the earlier route "
+            f"{earlier['ms']:.4f} ms per call, {e_ms:.4f} ms and "
+            f"{e_kernels:g} kernels on the device")
         if name == "posit8":            # the posit8 lane's cache
             report["posit_kv_append"].update(row)
         else:
@@ -3160,6 +3602,7 @@ def main() -> int:
     check_fft_stages(dev, report)
     check_serve_kernels(dev, report)
     check_moe_kernels(dev, report)
+    check_api_kernels(dev, report)
     check_format_kernels(dev, report)
 
     phase("phase 3: stream path, 64-patient fleet")
@@ -3200,6 +3643,7 @@ def main() -> int:
     extra += time_round_host(dev, report)
     extra += time_format_kernels(dev, report)
     extra += time_serve_kernels(dev, report)
+    extra += time_api_kernels(dev)
     for r in [*report.values(), *extra]:
         lib = ("-" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
@@ -3250,6 +3694,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase 5b in {time.perf_counter() - t0:.1f} s ({card})")
 
+    for tag, arch in (("5c", VLM_ARCH), ("5d", ENCDEC_ARCH)):
+        phase(f"phase {tag}: {arch} at full width through prefill and "
+              f"{API_STEPS} decode steps, two KV lanes")
+        t0 = time.perf_counter()
+        run_model_api(dev, arch, counters, card)
+        log(f"  phase {tag} in {time.perf_counter() - t0:.1f} s ({card})")
+
     phase("phase 6: the format study, the quickstart and Arith.fma")
     t0 = time.perf_counter()
     run_study(dev, counters)
@@ -3288,27 +3739,12 @@ def main() -> int:
     return 0
 
 
-def refuse_plain_on_card() -> None:
-    """In a process that phase 8's pool spawns (it imports this script as
-    ``__mp_main__``), make each stream kernel's plain version raise when it
-    is given a CUDA tensor: a worker that fell back to one fails, and shows
-    in the pool's ``failed_workers``, instead of passing on its bits."""
-    import importlib
-    import torch
-    from repro_torch.kernels.counts import STREAM_PLAIN
-    for m, n in STREAM_PLAIN:
-        mod = importlib.import_module(m)
-
-        def refused(*a, _real=getattr(mod, n), _key=f"{m}.{n}", **kw):
-            if any(isinstance(t, torch.Tensor) and t.is_cuda
-                   for t in (*a, *kw.values())):
-                raise AssertionError(f"{_key} called on a CUDA tensor in a "
-                                     f"pool worker")
-            return _real(*a, **kw)
-        setattr(mod, n, refused)
-
-
 if __name__ == "__main__":
     sys.exit(main())
 elif __name__ == "__mp_main__":
+    # phase 8's pool spawns workers that import this script as
+    # ``__mp_main__``: a stream kernel's plain version raises there on a
+    # CUDA tensor, so a fallback fails its worker
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.counts import refuse_plain_on_card
     refuse_plain_on_card()

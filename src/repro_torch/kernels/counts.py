@@ -6,7 +6,9 @@ Every kernel wrapper counts its launches in ``<wrapper>.launches``
 sets them to 0.  ``PlainCalls`` counts, while entered, the calls of a
 path's plain versions (``STREAM_PLAIN``, ``SERVE_PLAIN``) given a tensor on
 the card: on the card each of them must stay 0, so a kernel that quietly
-fell back to its plain version shows.  The ingest worker pool ships each
+fell back to its plain version shows.  ``refuse_plain_on_card`` makes them
+raise instead, for a process of its own (a spawned pool worker, whose
+launch counts are all it reports); nothing in the library calls it.  The ingest worker pool ships each
 worker process's launch counts (``repro_torch.ingest.workers``).
 """
 from __future__ import annotations
@@ -79,3 +81,22 @@ class PlainCalls:
         for mod, name, real in reversed(self._saved):
             setattr(mod, name, real)
         self._saved = []
+
+
+def refuse_plain_on_card(sites=STREAM_PLAIN) -> None:
+    """From now on in this process, each plain version of ``sites`` raises
+    when it is given a CUDA tensor: a worker that fell back to one fails,
+    and shows in the pool's ``failed_workers``, instead of passing on its
+    bits."""
+    import importlib
+    import torch
+    for m, n in sites:
+        mod = importlib.import_module(m)
+
+        def refused(*a, _real=getattr(mod, n), _key=f"{m}.{n}", **kw):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda
+                   for t in (*a, *kw.values())):
+                raise AssertionError(f"{_key} called on a CUDA tensor in a "
+                                     f"process that refuses it")
+            return _real(*a, **kw)
+        setattr(mod, n, refused)

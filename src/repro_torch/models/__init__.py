@@ -1,14 +1,16 @@
 """Model factory: ``ModelConfig.family`` → model class.  The port has the
-``dense`` and ``moe`` families; ``vlm``, ``encdec``, ``ssm`` and ``hybrid``
+``dense``, ``moe``, ``vlm`` and ``encdec`` families; ``ssm`` and ``hybrid``
 wait for later slices (ROADMAP.md, queue A item A3)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import QuantPolicy
 
+from .encdec import EncDecLM
 from .transformer import DecoderLM
 
-FAMILIES = {"dense": DecoderLM, "moe": DecoderLM}
+FAMILIES = {"dense": DecoderLM, "moe": DecoderLM, "vlm": DecoderLM,
+            "encdec": EncDecLM}
 
 
 def build_model(cfg: ModelConfig, policy: QuantPolicy = QuantPolicy(),

@@ -8,8 +8,10 @@ through the decode kernel's; a decode step whose cache qualifies
 (``_fused_kv_eligible``) attends through the posit-KV attention kernel,
 which decodes K/V inside the kernel.  A prefill of more than 1024
 positions without ``lengths`` attends through the blocked online softmax
-(``chunked_attention``), as the reference's does.  The training path waits
-for queue A item A5 (ROADMAP.md).
+(``chunked_attention``), as the reference's does.  ``attention_train`` is
+the full-sequence attention as a forward pass (the encoder's; gradients
+wait for queue A item A5, ROADMAP.md), and ``cross_attention`` attends a
+decoder's queries over an encoder's precomputed K/V.
 """
 from __future__ import annotations
 
@@ -249,6 +251,22 @@ def _project_qkv(p, x, cfg, positions):
     return q, k, v
 
 
+def attention_train(p, x, cfg, *, window=BIG_WINDOW, causal=True):
+    """Full-sequence attention without a cache (the encoder's forward
+    pass): the blocked online softmax past 1024 positions, the plain one
+    otherwise, as the reference's."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    if S > 1024:
+        out = chunked_attention(q, k, v, causal=causal, window=window,
+                                cap=cfg.attn_softcap)
+    else:
+        out = plain_attention(q, k, v, causal=causal, window=window,
+                              cap=cfg.attn_softcap)
+    return dense(p["wo"], out.reshape(B, S, -1))
+
+
 def attention_prefill(p, x, cfg, cache: KVCache, *, window=BIG_WINDOW,
                       causal=True, lengths=None):
     """Full-sequence attention + cache fill.  Attention uses the fresh bf16
@@ -316,3 +334,14 @@ def attention_decode(p, x, cfg, cache: KVCache, *, window=BIG_WINDOW):
             q_offset=cache.length - S_new, kv_len=cache.length)
     return dense(p["wo"], out.reshape(B, S_new, -1)), cache
 
+
+def cross_attention(p, x, cfg, enc_k, enc_v, enc_len=None):
+    """Decoder-to-encoder attention (seamless): the queries of ``x`` over
+    the encoder's precomputed K/V (B, S_src, KV, D), unmasked up to
+    ``enc_len`` (a scalar or (B,) valid lengths; None: every position)."""
+    B, S_new, _ = x.shape
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    q = dense(p["wq"], x).reshape(B, S_new, H, hd)
+    out = plain_attention(q, enc_k, enc_v, causal=False, window=BIG_WINDOW,
+                          cap=0.0, kv_len=enc_len)
+    return dense(p["wo"], out.reshape(B, S_new, -1))

@@ -1,5 +1,5 @@
-"""Decoder-only LM for the ``dense`` (qwen, gemma2, granite) and ``moe``
-(granite-moe, dbrx) families — the serving half of
+"""Decoder-only LM for the ``dense`` (qwen, gemma2, granite), ``moe``
+(granite-moe, dbrx) and ``vlm`` (internvl2) families — the serving half of
 ``repro.models.transformer.DecoderLM``.
 
 A Python loop over the layers replaces ``lax.scan``; the per-layer
@@ -7,9 +7,11 @@ parameters are views of the layer-stacked tree.  gemma2's logit softcaps,
 alternating local windows, sandwich norms and embedding scale are ported,
 so the plain decode route is exercised too.  A ``moe`` layer runs
 ``moe.moe_ffn`` where a dense one runs its FFN; serving drops the aux loss,
-as the reference's does.  The ``vlm`` family's vision frontend and
-training (``loss``) wait for later slices (ROADMAP.md, queue A items A3
-and A5).
+as the reference's does.  A ``vlm`` model's ``vision_stub`` frontend puts
+the caller's precomputed patch embeddings (``batch["frontend"]``) before
+the prompt's tokens; they take cache positions, and a decode step's
+positions follow from the cache length.  Training (``loss``) waits for a
+later slice (ROADMAP.md, queue A item A5).
 """
 from __future__ import annotations
 
@@ -32,11 +34,11 @@ BIG_WINDOW = attn.BIG_WINDOW
 
 
 class DecoderLM:
-    """Dense or MoE decoder LM on one device (``None``: the card)."""
+    """Dense, MoE or VLM decoder LM on one device (``None``: the card)."""
 
     def __init__(self, cfg: ModelConfig, policy: QuantPolicy = QuantPolicy(),
                  device=None):
-        if cfg.frontend != "none":
+        if cfg.frontend not in ("none", "vision_stub"):
             raise NotImplementedError(
                 f"DecoderLM with the {cfg.frontend!r} frontend is not ported "
                 f"yet (ROADMAP.md, queue A item A3)")
@@ -119,6 +121,16 @@ class DecoderLM:
         return fake_quant(x.to(torch.float32),
                           self.policy.activations).to(x.dtype)
 
+    def _inputs_embed(self, params, batch):
+        """The prompt's embeddings, after the ``vision_stub`` frontend's
+        patch rows (f32, cast to bf16) where the config has one."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        x = embed(params["embed"], tokens)
+        if self.cfg.frontend == "vision_stub":
+            fe = torch.as_tensor(batch["frontend"], device=self.device)
+            x = torch.cat([fe.to(COMPUTE_DTYPE), x], dim=1)
+        return self._embed_scale(x)
+
     def _embed_scale(self, x):
         """gemma scales the embeddings by sqrt(d_model), in bf16."""
         if self.cfg.attn_softcap > 0:
@@ -157,18 +169,25 @@ class DecoderLM:
         positions are masked out of every prefill attention, the caches
         carry per-row lengths, and the returned logits are each row's LAST
         REAL token's — so padded-batch prefill logits match per-prompt
-        unbatched prefill.
+        unbatched prefill.  A ``vision_stub`` model takes no ``lengths``
+        (patch rows would shift each row's token offsets) and adds its
+        ``frontend_len`` patch rows to the capacity.
         """
         cfg = self.cfg
-        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         lengths = batch.get("lengths")
+        B, S = batch["tokens"].shape
+        capacity = capacity or S
+        if cfg.frontend == "vision_stub":
+            if lengths is not None:
+                raise NotImplementedError(
+                    "ragged prompts + vision frontend: patch rows would "
+                    "shift every row's real-token offsets")
+            capacity += cfg.frontend_len  # patches occupy cache positions
         if lengths is not None:
             lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                       device=self.device)
-        B, S = tokens.shape
-        caches = self.init_cache(B, capacity or S,
-                                 per_row=lengths is not None)
-        x = self._embed_scale(embed(params["embed"], tokens))
+        caches = self.init_cache(B, capacity, per_row=lengths is not None)
+        x = self._inputs_embed(params, batch)
         x, caches = self._run_layers(
             params, x, caches,
             lambda lp, x, w, c: self._block_prefill(lp, x, w, c, lengths))

@@ -126,6 +126,16 @@ class _Lane:
         return toks
 
 
+# families whose model API the engine's admission and per-row caches do not
+# fit, with the reason (the reference's engine fails on each of them)
+_NOT_SERVED = {
+    "vlm": "its prefill refuses the per-row prompt lengths that admission "
+           "passes (patch rows would shift each row's token offsets)",
+    "encdec": "its self-attention cache has one length for every row, not "
+              "the per-row lengths of the engine's slots",
+}
+
+
 class ServingEngine:
     """Multi-lane continuous-batching engine on one device.
 
@@ -140,6 +150,13 @@ class ServingEngine:
     def __init__(self, model, params, cfg: ServeConfig,
                  policy: Union[ServePolicy, QuantPolicy] = None,
                  device=None, metrics=None, tracer=None):
+        family = model.cfg.family
+        if family in _NOT_SERVED:
+            raise NotImplementedError(
+                f"ServingEngine does not serve the {family!r} family: "
+                f"{_NOT_SERVED[family]}, as the reference's engine fails on "
+                f"it; call the model's prefill and decode_step (ROADMAP.md, "
+                f"queue A item A3)")
         self.device = resolve_device(device)
         self.model = model
         self.cfg = cfg

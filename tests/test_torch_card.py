@@ -19,8 +19,12 @@ multiply-add at every element offset within 16 bytes, under row, column
 and host 0-d broadcasts; a small ingest fleet over localhost TCP on
 the card, bitwise equal to the in-process run there; the KV-attention and
 the expert-stack decode at granite-moe-3b-a800m's shapes, one MoE layer
-the same bits on a second call; and the ingest worker pool's workers on
-the card, their digests equal to the in-process run.
+the same bits on a second call; the KV-attention at internvl2-2b's and
+seamless-m4t-large-v2's heads (G = 2, D = 128; G = 1, D = 64) and the
+reduced vlm and encdec models on the card near the CPU; and the ingest
+worker pool's workers on the card (a spawned worker refusing the stream
+kernels' plain versions on CUDA tensors), their digests equal to the
+in-process run.
 """
 import numpy as np
 import pytest
@@ -738,10 +742,87 @@ def test_moe_layer_same_bits_twice_and_near_the_cpu(B, S, dev):
     assert abs(float(aux1) - float(cpu_aux)) <= 1e-6
 
 
-def test_worker_pool_on_the_card_equals_inproc(dev):
-    """Two pool workers, each with its own CUDA context, score a small ECG
-    fleet on the card: every digest equal to the in-process card run and
-    the round kernel launched in each worker."""
+@pytest.mark.parametrize("name", ["posit8", "posit16"])
+@pytest.mark.parametrize("KV,G,D,S", [(8, 2, 128, 352), (8, 2, 128, 4096),
+                                      (16, 1, 64, 48), (16, 1, 64, 2048)],
+                         ids=["internvl2-352", "internvl2-4096",
+                              "seamless-48", "seamless-2048"])
+def test_kv_attention_vlm_and_encdec_geometry(name, KV, G, D, S, dev):
+    """internvl2-2b's heads (8 KV heads, 2 query rows each, D = 128) and
+    seamless-m4t-large-v2's (16 KV heads, 1 query row each, D = 64), in
+    one query group, within 2e-5 of the plain version."""
+    from repro_torch.kernels.posit_codec import posit_encode_torch
+    from repro_torch.kernels.posit_kv_attention import (
+        posit_kv_attention, posit_kv_attention_torch, query_groups)
+    fmt = get_format(name)
+    B = 4
+    assert query_groups(G, D) == (G, 1)
+    g = torch.Generator().manual_seed(18)
+    q = torch.randn(B, KV, G, D, generator=g).to(dev)
+    kb, vb = (posit_encode_torch(torch.randn(B, S, KV, D, generator=g),
+                                 fmt).to(dev) for _ in range(2))
+    lengths = torch.tensor([1, S // 3, S - 1, S], dtype=torch.int32,
+                           device=dev)
+    k = posit_kv_attention(q, kb, vb, lengths, fmt)
+    p = posit_kv_attention_torch(q, kb, vb, lengths, fmt)
+    assert torch.allclose(k, p, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["internvl2-2b", "seamless-m4t-large-v2"])
+def test_reduced_vlm_and_encdec_on_the_card_near_the_cpu(arch, dev):
+    """The reduced vlm and encdec models with posit16 weights and a posit8
+    KV cache on the card and on the CPU, the same weights and batch
+    (patch rows or source frames): prefill and 3 decode steps fed the
+    CPU's greedy tokens, logits within 2e-2, the KV-attention kernel
+    launched once a layer and decode step, and the encdec prefill's cross
+    K/V encoded on the card."""
+    from repro_torch.configs import CONFIGS, reduced
+    from repro_torch.core.policy import AGGRESSIVE_POLICY
+    from repro_torch.core.quant import quantize_params
+    from repro_torch.kernels.posit_codec import posit_encode
+    from repro_torch.kernels.posit_kv_attention import posit_kv_attention
+    from repro_torch.models import build_model
+    from repro_torch.models.common import to_device
+    cfg = reduced(CONFIGS[arch])
+    cpu = build_model(cfg, AGGRESSIVE_POLICY, device="cpu")
+    on_card = build_model(cfg, AGGRESSIVE_POLICY, device=dev)
+    params = quantize_params(cpu.init(torch.Generator().manual_seed(19)),
+                             get_format("posit16"), cast_rest=torch.bfloat16)
+    g = torch.Generator().manual_seed(20)
+    rows = ("frontend", (3, cfg.frontend_len, cfg.d_model)) \
+        if cfg.family == "vlm" else ("frames", (3, 12, cfg.d_model))
+    batch = {"tokens": torch.randint(1, cfg.vocab, (3, 9), generator=g),
+             rows[0]: torch.randn(rows[1], generator=g)}
+    l_cpu, s_cpu = cpu.prefill(params, batch, 12)
+    before = posit_encode.launches, posit_kv_attention.launches
+    l_card, s_card = on_card.prefill(to_device(params, dev),
+                                     {k: v.to(dev) for k, v in batch.items()},
+                                     12)
+    enc = 2 * cfg.n_layers if cfg.family == "encdec" else 0
+    assert posit_encode.launches == before[0] + enc
+    for step in range(3):
+        assert torch.allclose(l_card.float().cpu(), l_cpu.float(),
+                              rtol=2e-2, atol=2e-2), step
+        tok = l_cpu[:, -1, :cfg.vocab].argmax(-1)[:, None]
+        l_cpu, s_cpu = cpu.decode_step(params, tok, s_cpu)
+        l_card, s_card = on_card.decode_step(to_device(params, dev),
+                                             tok.to(dev), s_card)
+    assert torch.allclose(l_card.float().cpu(), l_cpu.float(), rtol=2e-2,
+                          atol=2e-2)
+    assert posit_kv_attention.launches == before[1] + 3 * cfg.n_layers
+
+
+# Run as its own process: the spawned pool workers import it as
+# ``__mp_main__``, where a stream kernel's plain version raises on a CUDA
+# tensor (``refuse_plain_on_card``), so a worker that fell back to one fails
+# and shows in ``failed_workers``.
+POOL_SCRIPT = """
+import json
+
+from repro_torch.kernels.counts import refuse_plain_on_card
+
+
+def main():
     from repro_torch.ingest import (FleetSimulator, Supervisor,
                                     run_worker_fleet)
     from repro_torch.ingest.workers import _result_digests
@@ -751,13 +832,62 @@ def test_worker_pool_on_the_card_equals_inproc(dev):
         return FleetSimulator(n_patients=8, windows=2, seed=6, mixed=False,
                               n_cough=0)
     ref = StreamEngine({"rpeak": rpeak_pipeline()}, max_batch=8,
-                       pad_policy="max", result_capacity=None, device=dev)
+                       pad_policy="max", result_capacity=None, device="cuda")
     sim().run_inproc(ref)
     sup = Supervisor(ref, capacity=1 << 12)
     sup.poll()
-    want = _result_digests(sup)
     doc = run_worker_fleet(sim(), 2, max_batch=8)
+    print(json.dumps({"want": _result_digests(sup), "doc": doc}))
+
+
+if __name__ == "__main__":
+    main()
+elif __name__ == "__mp_main__":
+    refuse_plain_on_card()
+"""
+
+
+def test_worker_pool_on_the_card_equals_inproc(dev, tmp_path):
+    """Two pool workers, each with its own CUDA context, score a small ECG
+    fleet on the card: every digest equal to the in-process card run, the
+    round kernel launched in each worker, and no worker failed, where a
+    stream kernel's plain version given a CUDA tensor raises
+    (``POOL_SCRIPT``)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    script = tmp_path / "pool_on_the_card.py"
+    script.write_text(POOL_SCRIPT)
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=str(src)))
+    assert out.returncode == 0, out.stderr[-4000:]
+    run = json.loads(out.stdout.strip().splitlines()[-1])
+    doc = run["doc"]
     assert doc["failed_workers"] == [] and doc["windows"] == 16
-    assert doc["digests"] == want
+    assert doc["digests"] == run["want"]
     for w in doc["workers"]:
         assert w["kernel_calls"]["posit_round"] > 0
+
+
+def test_refuse_plain_on_card_raises_on_a_cuda_tensor(dev, monkeypatch):
+    """The guard the pool test's workers install: a stream kernel's plain
+    version raises on a CUDA tensor and still runs on a CPU one."""
+    import importlib
+
+    from repro_torch.kernels import posit_round as round_module
+    from repro_torch.kernels.counts import STREAM_PLAIN, refuse_plain_on_card
+    for m, n in STREAM_PLAIN:          # restored after the test
+        mod = importlib.import_module(m)
+        monkeypatch.setattr(mod, n, getattr(mod, n))
+    refuse_plain_on_card()
+    fmt = get_format("posit10")
+    x = torch.randn(64)
+    assert torch.equal(round_module.posit_round_torch(x, fmt),
+                       posit_round_torch(x, fmt))
+    with pytest.raises(AssertionError, match="CUDA tensor"):
+        round_module.posit_round_torch(x.to(dev), fmt)

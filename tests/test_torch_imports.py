@@ -2,7 +2,8 @@
 
 * With ``jax`` and ``repro`` blocked, ``repro_torch`` and every sub-module
   import, and so do the modules ``chip_smoke.py`` imports and the worker
-  pool's, the restart policy's and the MoE layer's public names.
+  pool's, the restart policy's, the MoE layer's and the encoder-decoder's
+  public names.
 * No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
   ``jax`` or ``repro`` (an AST scan).
 * Entry points (the stream engine and window cores, ``build_model``,
@@ -91,7 +92,9 @@ def test_slice_names_import_with_jax_and_repro_blocked():
         "from repro_torch.distributed.fault_tolerance import (\n"
         "    RestartPolicy, StepWatchdog, run_with_restarts)\n"
         "from repro_torch.models.moe import init_moe, moe_ffn\n"
-        "from repro_torch.models.attention import chunked_attention\n"
+        "from repro_torch.models.attention import (attention_train,\n"
+        "    chunked_attention, cross_attention)\n"
+        "from repro_torch.models.encdec import EncDecLM\n"
         "print('ok')\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr
@@ -138,9 +141,12 @@ def _serving_engine(dev):
     lambda dev: run_worker_fleet(
         FleetSimulator(n_patients=2, windows=1, mixed=False, n_cough=0), 1,
         max_batch=2, device=dev),
+    lambda dev: build_model(reduced(CONFIGS["internvl2-2b"]), device=dev),
+    lambda dev: build_model(reduced(CONFIGS["seamless-m4t-large-v2"]),
+                            device=dev),
 ], ids=["StreamEngine", "make_cough_scorer", "detect_rpeaks", "build_model",
         "ServingEngine", "launch.serve", "quickstart", "build_model_moe",
-        "run_worker_fleet"])
+        "run_worker_fleet", "build_model_vlm", "build_model_encdec"])
 def test_entry_points_need_the_card_unless_told(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

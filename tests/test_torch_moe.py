@@ -52,7 +52,7 @@ from repro_torch.core.arith import backend_overrides
 from repro_torch.core.formats import POSIT16
 from repro_torch.core.policy import AGGRESSIVE_POLICY
 from repro_torch.core.quant import PositTensor, quantize_params
-from repro_torch.models import DecoderLM, build_model
+from repro_torch.models import DecoderLM, EncDecLM, build_model
 from repro_torch.models import moe as tmoe
 from repro_torch.models.common import unstack
 from repro_torch.models.convert import params_from_jax
@@ -98,11 +98,12 @@ def _leaves(tree, path=()):
 
 
 def test_build_model_is_a_decoder_lm_for_moe_and_refuses_the_rest():
-    for name in ARCHS:
+    for name in (*ARCHS, "internvl2-2b"):
         assert type(build_model(reduced(CONFIGS[name]),
                                 device="cpu")) is DecoderLM
-    for name in ("internvl2-2b", "seamless-m4t-large-v2", "xlstm-1.3b",
-                 "zamba2-7b"):
+    assert type(build_model(reduced(CONFIGS["seamless-m4t-large-v2"]),
+                            device="cpu")) is EncDecLM
+    for name in ("xlstm-1.3b", "zamba2-7b"):
         with pytest.raises(NotImplementedError, match="A3"):
             build_model(reduced(CONFIGS[name]), device="cpu")
 
