@@ -2160,20 +2160,26 @@ def check_api_launches(got, want, what):
 def decode_ms_by_output(prof, steps):
     """Device ms per step of the decode kernel's f32-output launches (in a
     decode step, the cross K/V's: the weights decode to bf16), from a
-    profile of ``steps`` decode steps; NaN if none was recorded."""
+    profile of ``steps`` decode steps.  Raises if the profile holds none:
+    the encdec lane launches 48 a step, so a miss means the kernel's
+    name or template signature changed under this parse."""
     from torch.autograd import DeviceType
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and "posit_decode_kernel<" in e.key
-             and e.key.split("posit_decode_kernel<")[1].split(",")[1]
-             .strip() == "float")
-    return us / 1e3 / steps if us else float("nan")
+    us = [e.self_device_time_total for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA
+          and "posit_decode_kernel<" in e.key
+          and e.key.split("posit_decode_kernel<")[1].split(",")[1]
+          .strip() == "float"]
+    if not us:
+        raise AssertionError("no f32-output posit_decode_kernel in the "
+                             "profiled decode steps")
+    return sum(us) / 1e3 / steps
 
 
-def cross_kv_codec(model, params, batch, cross, card):
+def cross_kv_codec(cfg, cross, card):
     """The encdec lane's cross K/V on the card outside a step: the
-    prefill's encodes of every layer's cross K and V projections (f32 in,
-    as ``quantize`` gives them), back to back, beside their byte bound
+    prefill's encodes of every layer's cross K and V (f32 in, as
+    ``quantize`` gives them; here the stored values decoded back, whose
+    encode does the same work), back to back, beside their byte bound
     (every value read and every pattern written once); and the device
     time and kernels of a decode step's whole cross-attention read of the
     posit cross K/V (dequantize, cast to bf16, ``plain_attention`` of one
@@ -2182,8 +2188,6 @@ def cross_kv_codec(model, params, batch, cross, card):
     import torch
     from repro_torch.kernels.posit_codec import posit_encode
     from repro_torch.models import attention as attn
-    from repro_torch.models.common import unstack
-    cfg = model.cfg
     fmt = cross[0][0].fmt
     q = torch.randn(API_BATCH, 1, cfg.n_heads, cfg.resolved_head_dim,
                     device=cross[0][0].bits.device).to(torch.bfloat16)
@@ -2195,10 +2199,7 @@ def cross_kv_codec(model, params, batch, cross, card):
                 cv.dequant(torch.float32).to(q.dtype), causal=False,
                 window=attn.BIG_WINDOW, cap=0.0)
     read_ms, read_kernels = device_kernels(attend, reps=5)
-    enc_out = model.encode(params, batch["frames"])
-    xs = [x.float() for lp in unstack(params["decoder"], cfg.n_layers)
-          for x in model._cross_kv(lp, enc_out)]
-    del enc_out
+    xs = [t.dequant(torch.float32) for pair in cross for t in pair]
 
     def encode_all():
         for x in xs:
@@ -2313,7 +2314,7 @@ def run_model_api(dev, arch, counters, card):
                 f"{tuple(leaves[0].bits.shape)}, f32 out) against a byte "
                 f"bound of {bound:.3f} ms ({nbytes / 1e9:.2f} GB; "
                 f"{dec / bound * 100:.1f} % of it) ({card})")
-            cross_kv_codec(model, params, batch, again["state"][1], card)
+            cross_kv_codec(cfg, again["state"][1], card)
         del run, again, prof
         gc.collect()
     log(f"  card memory: peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"

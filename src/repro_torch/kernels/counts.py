@@ -83,14 +83,14 @@ class PlainCalls:
         self._saved = []
 
 
-def refuse_plain_on_card(sites=STREAM_PLAIN) -> None:
-    """From now on in this process, each plain version of ``sites`` raises
-    when it is given a CUDA tensor: a worker that fell back to one fails,
-    and shows in the pool's ``failed_workers``, instead of passing on its
-    bits."""
+def refuse_plain_on_card() -> None:
+    """From now on in this process, each plain version in ``STREAM_PLAIN``
+    raises when it is given a CUDA tensor: a worker that fell back to one
+    fails, and shows in the pool's ``failed_workers``, instead of passing on
+    its bits."""
     import importlib
     import torch
-    for m, n in sites:
+    for m, n in STREAM_PLAIN:
         mod = importlib.import_module(m)
 
         def refused(*a, _real=getattr(mod, n), _key=f"{m}.{n}", **kw):

@@ -18,7 +18,10 @@ KV heads of 16: G = 1, a GELU FFN), with the weights carried over by
   port's ``kernel`` backend on CPU tensors), greedy argmax equal wherever
   JAX's top-2 margin exceeds 4e-2, the posit-KV attention called
   ``n_layers`` times a decode step on the kernel route and never on the
-  plain one, the cache length S plus the steps;
+  plain one, the cache length S plus the steps; each layer's posit8 cross
+  K/V against JAX's (dequantized within 2e-2, bits equal wherever the two
+  sides' bf16 projections agree) and decoder layer 0's self-attention
+  posit8 K/V bits equal to JAX's, bit for bit;
 * ``ServingEngine`` refusing the model;
 * ``tests/test_models_smoke.py``'s decode smoke (shapes, finite logits) and
   its posit16-KV bound against the bf16 cache (atol 0.15, rtol 0.1).
@@ -193,6 +196,47 @@ def test_cross_kv_stay_bf16_without_a_kv_format(encdec):
             assert t.shape == (2, 12, cfg.n_kv_heads, cfg.resolved_head_dim)
 
 
+def _check_cross_kv(encdec, frames, jx, tx, route):
+    """Each decoder layer's posit8 cross K/V from prefill against JAX's:
+    the bf16 projections they encode within the 2e-2 tier, as a relative
+    L2 error of the whole tensor, and the posit bits equal wherever the
+    two sides' projections agree (the encode is in the bitwise tier).
+    Where the projections differ by a bf16 rounding, the patterns can
+    differ too (by a posit8 step, up to 1/8 of the value, or by several
+    steps near 0), so the dequantized values are not held to 2e-2 element
+    by element."""
+    minfo, jm, _, jq, tm, _, tq = encdec
+    cfg = tm.cfg
+    with minfo.mesh:
+        jenc = jm.encode(jq, jnp.asarray(frames))
+    tenc = tm.encode(tq, torch.from_numpy(frames))
+    jk, jv = jx
+    assert len(tx) == cfg.n_layers
+    agree = []
+    for i, (lp, (ck, cv)) in enumerate(zip(unstack(tq["decoder"],
+                                                   cfg.n_layers), tx)):
+        with minfo.mesh:
+            jproj = jm._cross_kv(jax.tree_util.tree_map(
+                lambda a, i=i: a[i], jq["decoder"]), jenc)
+        for got, want, x, jxx, what in zip(
+                (ck, cv), (jk, jv), tm._cross_kv(lp, tenc), jproj, "KV"):
+            what = f"{route} layer {i} cross {what}"
+            assert got.fmt.name == want.fmt.name == "posit8", what
+            x, jxx = x.float().numpy(), np.asarray(jxx, np.float32)
+            # each projection mixes every encoder output, whose bf16
+            # roundings differ between the two sides: the tier is held on
+            # the whole tensor (a value near 0 can lose all its digits)
+            assert (np.linalg.norm(x - jxx) / np.linalg.norm(jxx)
+                    <= TOL["rtol"]), what
+            bits, jbits = got.bits.numpy(), np.asarray(want.bits[i])
+            same = x == jxx
+            np.testing.assert_array_equal(bits[same], jbits[same],
+                                          err_msg=what)
+            agree.append(same.mean())
+    # the bitwise check covers a quarter or more of every tensor
+    assert min(agree) > 0.25, agree
+
+
 @pytest.mark.parametrize("route", ["plain", "kernel"])
 def test_prefill_and_decode_logits_match_jax(encdec, route, monkeypatch):
     minfo, jm, _, jq, tm, _, tq = encdec
@@ -209,19 +253,27 @@ def test_prefill_and_decode_logits_match_jax(encdec, route, monkeypatch):
                      else "jnp")
     with minfo.mesh, jbackend(**jax_route), backend_overrides(
             round_backend="kernel" if route == "kernel" else "torch"):
-        jl, (jc, _) = jm.prefill(jq, {k: jnp.asarray(v) for k, v in
-                                      batch.items()}, S + steps)
+        jl, (jc, jx) = jm.prefill(jq, {k: jnp.asarray(v) for k, v in
+                                       batch.items()}, S + steps)
         tl, (tc, tx) = tm.prefill(tq, {k: torch.from_numpy(v) for k, v in
                                        batch.items()}, S + steps)
         _check_logits(tl, jl, f"{route} prefill")
+        _check_cross_kv(encdec, batch["frames"], jx, tx, route)
         # the BOS prefill takes the plain route (S_new > 1)
         assert calls == []
-        jstate, tstate = (jc, _), (tc, tx)
+        jstate, tstate = (jc, jx), (tc, tx)
         for s in range(steps):
             jl, jstate = jm.decode_step(jq, jnp.asarray(forced[s]), jstate)
             tl, tstate = tm.decode_step(tq, torch.from_numpy(forced[s]),
                                         tstate)
             _check_logits(tl, jl, f"{route} decode step {s}")
+        # decoder layer 0's self-attention sees identical inputs (the
+        # embedded tokens), so its posit8 K/V bits agree; deeper layers
+        # inherit bf16-level differences (tolerance tier)
+        for port, ref in ((tstate[0].k, jstate[0].k),
+                          (tstate[0].v, jstate[0].v)):
+            np.testing.assert_array_equal(port.bits[0].numpy(),
+                                          np.asarray(ref.bits[0]))
     tc, tx_after = tstate
     assert tx_after is tx
     assert tc.length.tolist() == [S + steps] * cfg.n_layers
