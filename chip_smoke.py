@@ -103,6 +103,19 @@ Phases, each fatal on failure:
      profiled window) and the prefill's cross K/V encodes beside their
      byte bounds, and a decode step's whole cross-attention read of the
      posit cross K/V on the device;
+  5e. the ssm family the same way, on one lane (it has no KV cache):
+     xlstm-1.3b at full width (6 groups of 7 mLSTM + 1 sLSTM blocks), 4
+     rows of 512 tokens (two mLSTM chunks), 272 weight decodes a prefill
+     and a decode step (``w_h`` once a pass), every posit decode's device
+     ms per lane-step beside its byte bound, and one sLSTM block's
+     per-token loop at prefill (host clock, device time and kernels);
+  5f. the hybrid family the same way: zamba2-7b at full width (13 groups
+     of 6 Mamba2 layers, each followed by the shared attention + MLP
+     block, then a 3-layer tail; shared attention 32 heads of 112), 4
+     rows of 512 tokens (two SSD chunks), 255 weight decodes, 13 KV
+     appends and (decode steps) 13 KV-attention launches a pass, and the
+     shared block's weight decodes (the same seven weights at each of its
+     13 calls) beside their byte bound;
   6. the format study: R-peak F1 over nine formats and cough AUC over
      three on the card, the paper's orderings asserted, three formats'
      F1 card against CPU; the quickstart (one decode-fused matmul launch);
@@ -141,11 +154,13 @@ the KV-attention is held at S = 96 (one split) and S = 32768 (many).
 Phase 2 also holds, at granite-moe-3b-a800m's shapes, the KV-attention
 at D = 64, G = 3 (posit8 and posit16) within 2e-5, the expert stacks'
 decode bitwise, and one MoE layer's output the same bits on a second call.
-Phase 2 holds, at phases 5c's and 5d's shapes, the KV-attention at G = 2,
-D = 128 and G = 1, D = 64 within 2e-5, the KV append at KV = 16, D = 64 in
-its three modes and the encode and f32 decode at the cross K/V shape (4,
-2048, 16, 64) bitwise; phase 4 times them (and the KV-attention beside
-``scaled_dot_product_attention``).
+Phase 2 holds, at phases 5c's, 5d's and 5f's shapes, the KV-attention at
+G = 2, D = 128, at G = 1, D = 64 and at G = 1, D = 112 (KV = 32) within
+2e-5, the KV append at KV = 16, D = 64 and KV = 32, D = 112 in its three
+modes and the encode and f32 decode at the cross K/V shape (4, 2048, 16,
+64) bitwise; phase 4 times them (and the KV-attention beside
+``scaled_dot_product_attention``), and the weight decode at every weight
+shape of phases 5e and 5f.
 Phase 3's fleet pins every fourth cough patient to fp16.  Each phase
 prints its wall time.
 
@@ -195,12 +210,16 @@ LONG_PREFILL = 2048            # phase 5b: a prefill without lengths
 CHUNKED_TOL = dict(rtol=1e-2, atol=1e-2)   # chunked vs plain, bf16 outputs
 VLM_ARCH = "internvl2-2b"      # phase 5c
 ENCDEC_ARCH = "seamless-m4t-large-v2"   # phase 5d
-API_BATCH = 4                  # phases 5c, 5d: rows of the batch
+SSM_ARCH = "xlstm-1.3b"        # phase 5e
+HYBRID_ARCH = "zamba2-7b"      # phase 5f
+RECURRENT_PROMPT = 512         # phases 5e, 5f: prompt tokens (two chunks
+                               # of the scans' 256)
+API_BATCH = 4                  # phases 5c-5f: rows of the batch
 VLM_PROMPT = 64                # phase 5c: tokens after the 256 patch rows
 ENCDEC_SRC = 2048              # phase 5d: source frames (the encoder
                                # attends through chunked_attention)
 ENCDEC_BOS = 16                # phase 5d: BOS tokens primed at prefill
-API_STEPS = 32                 # phases 5c, 5d: greedy decode steps a lane
+API_STEPS = 32                 # phases 5c-5f: greedy decode steps a lane
 API_PROFILE = (8, 24)          # decode steps profiled in the second run
 POOL_WORKERS = 2               # phase 8
 POOL_REALTIME = 8.0            # phase 8a: the drive lasts 0.5 s, so the kill
@@ -287,6 +306,26 @@ def device_ms(fn, kernels, reps: int = 50) -> float:
         if us:
             return us / reps / 1e3
     return float("nan")
+
+
+def launch_ms(fn, kernel, launches, reps: int = 10):
+    """(device ms per call, launches recorded) of ``fn``, which launches
+    ``kernel`` ``launches`` times a call: the mean device time of the
+    launches ``torch.profiler`` records over ``reps`` calls, times
+    ``launches`` (the profiler may drop some of a window's events, which
+    would make ``device_ms``'s total over the calls short)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    n = sum(e.count for e in hits)
+    us = sum(e.self_device_time_total for e in hits)
+    return (us / n * launches / 1e3 if n else float("nan")), n
 
 
 def device_kernels(fn, reps: int = 50):
@@ -1305,14 +1344,14 @@ def check_main_path(engine, records, pins, forest, wall, launches):
     return len(results), wall
 
 
-def report_busy(prof, wall: float, what: str, top: int) -> None:
+def report_busy(events, wall: float, what: str, top: int) -> None:
     """Log the device's busy share of ``wall`` seconds and its top kernels,
     from the device-side (kernel and memcpy) events of a profile: an
     operator's own row carries the device time of the kernels it launched,
     so summing every row would count that time twice."""
     from torch.autograd import DeviceType
     rows = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages()
+            for e in events
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     if not rows:
@@ -1361,7 +1400,7 @@ def profile_main_path(dev, forest, counters):
         run_main_path(dev, forest, counters)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    report_busy(prof, wall, "under the profiler", 6)
+    report_busy(prof.key_averages(), wall, "under the profiler", 6)
 
 
 # ---------------------------------------------------------------------------
@@ -1563,9 +1602,11 @@ def reduced_batch(cfg):
     """Four prompts of the reduced config from a numpy seed: ragged, with
     their lengths, where the family is served by ``ServingEngine``; of 16
     tokens after 8 f32 patch rows (vlm) or 12 f32 source frames (encdec),
-    whose prefill takes no lengths."""
+    or alone (ssm, hybrid), where the prefill takes no lengths."""
     import numpy as np
     rng = np.random.default_rng(SEED)
+    if cfg.family in ("ssm", "hybrid"):
+        return {"tokens": rng.integers(1, cfg.vocab, (4, 16))}
     if cfg.family == "vlm":
         return {"tokens": rng.integers(1, cfg.vocab, (4, 16)),
                 "frontend": rng.normal(size=(4, cfg.frontend_len,
@@ -1585,7 +1626,8 @@ def reduced_batch(cfg):
 def serve_reduced_on_card_and_cpu(dev, arch=SERVE_ARCH):
     """The reduced config, run by the port on the card (the kernel route)
     and on the CPU (the plain route) with the same weights: prefill
-    (``reduced_batch``) and four decode steps fed the CPU's greedy tokens;
+    (``reduced_batch``, into a cache of 8 positions more than its tokens)
+    and four decode steps fed the CPU's greedy tokens;
     logits within 2e-2 and the same greedy tokens wherever the top-2
     margin exceeds 4e-2."""
     import torch
@@ -1609,7 +1651,7 @@ def serve_reduced_on_card_and_cpu(dev, arch=SERVE_ARCH):
                                  cast_rest=torch.bfloat16)
         logits, caches = model.prefill(
             params, {k: torch.from_numpy(v).to(d) for k, v in batch.items()},
-            24)
+            batch["tokens"].shape[1] + 8)
         steps = [logits[:, -1].float().cpu()]
         for s in range(4):
             fed = outs["cpu"][s] if d != "cpu" else steps[-1]
@@ -1699,11 +1741,11 @@ def profile_serve(dev, model, params, reqs, want, card):
             n_greedy += 1
     log(f"  a second engine reproduced the greedy tokens of {n_greedy} "
         f"requests")
-    report_busy(prof, wall, f"under the profiler, engine steps "
+    events = prof.key_averages()
+    report_busy(events, wall, f"under the profiler, engine steps "
                 f"{PROFILE_STEPS[0]}-{PROFILE_STEPS[1] - 1} (both lanes "
                 f"decoding) ({card})", 8)
-    on_card = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
     if n_lane and on_card:
         n_dev = sum(e.count for e in on_card)
         n_app = sum(e.count for e in on_card
@@ -2056,8 +2098,9 @@ def run_moe_serve(dev, counters, card):
 
 
 # ---------------------------------------------------------------------------
-# Phases 5c and 5d: the vlm and encdec families at full width through the
-# model API (prefill, then decode_step; ServingEngine refuses both)
+# Phases 5c-5f: the vlm, encdec, ssm and hybrid families at full width
+# through the model API (prefill, then decode_step; ServingEngine refuses
+# all four)
 # ---------------------------------------------------------------------------
 
 def api_launches(cfg):
@@ -2069,8 +2112,26 @@ def api_launches(cfg):
     encodes every decoder layer's cross K/V, dequantizes them in the BOS
     pass, and reads its self-attention cache whole there (S_new > 1 takes
     the plain route); each of its decode steps dequantizes the cross K/V
-    again."""
+    again.  An ssm (xLSTM) pass decodes the six projections of every mLSTM
+    block and the three weights of every sLSTM block (``w_h`` once a
+    pass, not once a position) and has no KV cache; a hybrid (zamba) pass
+    decodes in_proj and out_proj of every mamba layer and the shared
+    block's seven weights at each of its calls, one a group, each of which
+    appends to its group's KV cache and, in a decode step, attends through
+    the KV-attention kernel."""
     L = cfg.n_layers
+    if cfg.family == "ssm":
+        per_pass = L // 8 * (7 * 6 + 3) + 2
+        both = dict(posit_decode=per_pass, posit_encode=0,
+                    posit_kv_append=0, posit_kv_attention=0)
+        return both, dict(both)
+    if cfg.family == "hybrid":
+        groups = L // cfg.shared_attn_every
+        per_pass = L * 2 + groups * 7 + 2
+        return (dict(posit_decode=per_pass, posit_encode=0,
+                     posit_kv_append=groups, posit_kv_attention=0),
+                dict(posit_decode=per_pass, posit_encode=0,
+                     posit_kv_append=groups, posit_kv_attention=groups))
     if cfg.family == "vlm":
         per_pass = L * 7 + 2      # wq, wk, wv, wo, w_gate, w_up, w_down
         return (dict(posit_decode=per_pass, posit_encode=0,
@@ -2088,12 +2149,17 @@ def api_launches(cfg):
 
 
 def api_batch(cfg, dev):
-    """Phase 5c's or 5d's batch, from seeded generators (the frames and
-    patch rows on the card), and the capacity given to prefill."""
+    """Phase 5c's, 5d's, 5e's or 5f's batch, from seeded generators (the
+    frames and patch rows on the card), and the capacity given to
+    prefill."""
     import numpy as np
     import torch
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    if cfg.family in ("ssm", "hybrid"):
+        toks = rng.integers(1, cfg.vocab, (API_BATCH, RECURRENT_PROMPT))
+        return ({"tokens": torch.from_numpy(toks).to(dev)},
+                RECURRENT_PROMPT + API_STEPS)
     if cfg.family == "vlm":
         toks = rng.integers(1, cfg.vocab, (API_BATCH, VLM_PROMPT))
         rows = ("frontend", (API_BATCH, cfg.frontend_len, cfg.d_model))
@@ -2111,12 +2177,22 @@ def api_generate(model, params, batch, capacity, counters, prof=None):
     """Greedy generation through the model API: one prefill, then
     ``API_STEPS`` decode steps, each fed the last step's argmax and ending
     on the host copy of its tokens (host clock).  With ``prof``, decode
-    steps ``API_PROFILE`` run under the profiler.  Returns the tokens
-    (B, steps + 1), the prefill's and each step's seconds, the launches of
-    the prefill and of the decode steps, the profiled window's wall and
-    the final decode state."""
+    steps ``API_PROFILE`` run under the profiler, with the posit decodes
+    they make and the bytes those read and write counted (``decoded``).
+    Returns the tokens (B, steps + 1), the prefill's and each step's
+    seconds, the launches of the prefill and of the decode steps, the
+    profiled window's wall and decodes, and the final decode state."""
     import torch
+    from repro_torch.core import quant
     vocab = model.cfg.vocab
+    real = quant.posit_decode
+    decoded = dict(bytes=0, calls=0)
+
+    def counted(bits, fmt, out_dtype=torch.float32):
+        decoded["bytes"] += bits.numel() * (
+            bits.element_size() + (2 if out_dtype == torch.bfloat16 else 4))
+        decoded["calls"] += 1
+        return real(bits, fmt, out_dtype)
 
     def counts():
         return {c.__name__: c.launches for c in counters}
@@ -2131,19 +2207,25 @@ def api_generate(model, params, batch, capacity, counters, prof=None):
                step_s=[], window_s=0.0)
     for c in counters:
         c.launches = 0
-    for s in range(API_STEPS):
-        if prof is not None and s == API_PROFILE[0]:
-            prof.start()
-            tw = time.perf_counter()
-        t0 = time.perf_counter()
-        logits, state = model.decode_step(params, tok[:, None], state)
-        tok = logits[:, -1, :vocab].argmax(-1)
-        toks.append(tok.cpu())
-        out["step_s"].append(time.perf_counter() - t0)
-        if prof is not None and s == API_PROFILE[1] - 1:
-            out["window_s"] = time.perf_counter() - tw
-            prof.stop()
-    out.update(tokens=torch.stack(toks, 1), decode=counts(), state=state)
+    try:
+        for s in range(API_STEPS):
+            if prof is not None and s == API_PROFILE[0]:
+                quant.posit_decode = counted
+                prof.start()
+                tw = time.perf_counter()
+            t0 = time.perf_counter()
+            logits, state = model.decode_step(params, tok[:, None], state)
+            tok = logits[:, -1, :vocab].argmax(-1)
+            toks.append(tok.cpu())
+            out["step_s"].append(time.perf_counter() - t0)
+            if prof is not None and s == API_PROFILE[1] - 1:
+                out["window_s"] = time.perf_counter() - tw
+                prof.stop()
+                quant.posit_decode = real
+    finally:
+        quant.posit_decode = real
+    out.update(tokens=torch.stack(toks, 1), decode=counts(), state=state,
+               decoded=decoded)
     return out
 
 
@@ -2157,14 +2239,14 @@ def check_api_launches(got, want, what):
         raise AssertionError(f"{what}: other kernels launched: {other}")
 
 
-def decode_ms_by_output(prof, steps):
+def decode_ms_by_output(events, steps):
     """Device ms per step of the decode kernel's f32-output launches (in a
-    decode step, the cross K/V's: the weights decode to bf16), from a
-    profile of ``steps`` decode steps.  Raises if the profile holds none:
+    decode step, the cross K/V's: the weights decode to bf16), from the
+    ``key_averages`` of a profile of ``steps`` decode steps.  Raises if the profile holds none:
     the encdec lane launches 48 a step, so a miss means the kernel's
     name or template signature changed under this parse."""
     from torch.autograd import DeviceType
-    us = [e.self_device_time_total for e in prof.key_averages()
+    us = [e.self_device_time_total for e in events
           if e.device_type == DeviceType.CUDA
           and "posit_decode_kernel<" in e.key
           and e.key.split("posit_decode_kernel<")[1].split(",")[1]
@@ -2218,17 +2300,20 @@ def cross_kv_codec(cfg, cross, card):
 
 
 def run_model_api(dev, arch, counters, card):
-    """Phase 5c or 5d: ``arch`` at full width on seeded weights (f32 init,
-    then ``quantize_params`` to posit16), through prefill and
-    ``API_STEPS`` greedy decode steps on two KV lanes (posit8, posit16):
-    the launches of the prefill and of every decode step as predicted
-    (``api_launches``), no plain version called on a CUDA tensor, the
-    greedy tokens reproduced by a second run (decode steps ``API_PROFILE``
-    of it under the profiler: the device's busy share and kernels per
-    lane-step, and for encdec the cross K/V decode's device ms per step),
-    host-clock ms per prefill and per decode step, tokens/s and card
-    memory; for encdec the cross K/V codec timed beside its byte bound;
-    then the reduced config on the card against the CPU."""
+    """Phase 5c, 5d, 5e or 5f: ``arch`` at full width on seeded weights
+    (f32 init, then ``quantize_params`` to posit16), through prefill and
+    ``API_STEPS`` greedy decode steps on two KV lanes (posit8, posit16;
+    the ssm family has no KV cache, so one lane): the launches of the
+    prefill and of every decode step as predicted (``api_launches``), no
+    plain version called on a CUDA tensor, the greedy tokens reproduced by
+    a second run (decode steps ``API_PROFILE`` of it under the profiler:
+    the device's busy share and kernels per lane-step, every posit
+    decode's device ms per lane-step beside its byte bound, and for encdec
+    the cross K/V decode's device ms per step), host-clock ms per prefill
+    and per decode step, tokens/s and card memory; for encdec the cross
+    K/V codec timed beside its byte bound, for ssm the sLSTM's per-token
+    loop at prefill, for hybrid the shared block's weight decodes; then
+    the reduced config on the card against the CPU."""
     import gc
     import statistics as st
     import torch
@@ -2265,7 +2350,8 @@ def run_model_api(dev, arch, counters, card):
         f"allocated; batch {({k: tuple(v.shape) for k, v in batch.items()})}"
         f", capacity {capacity}")
     n_prof = API_PROFILE[1] - API_PROFILE[0]
-    for kv in ("posit8", "posit16"):
+    lanes = (None,) if cfg.family == "ssm" else ("posit8", "posit16")
+    for kv in lanes:
         model = build_model(cfg, QuantPolicy(weights="posit16",
                                              kv_cache=kv), device=dev)
         prof = profile(activities=[ProfilerActivity.CPU,
@@ -2295,28 +2381,33 @@ def run_model_api(dev, arch, counters, card):
             f" tokens/s; launches as predicted in both runs; greedy tokens "
             f"{tuple(run['tokens'].shape)} reproduced by the second run; "
             f"plain versions on CUDA tensors: 0 ({card})")
-        report_busy(prof, again["window_s"], f"{arch} kv={kv}, decode steps "
-                    f"{API_PROFILE[0]}-{API_PROFILE[1] - 1} of the second "
-                    f"run under the profiler ({card})", 6)
-        on_card = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
+        events = prof.key_averages()
+        report_busy(events, again["window_s"], f"{arch} kv={kv}, decode "
+                    f"steps {API_PROFILE[0]}-{API_PROFILE[1] - 1} of the "
+                    f"second run under the profiler ({card})", 6)
+        on_card = [e for e in events if e.device_type == DeviceType.CUDA]
         if on_card:
             log(f"  device kernels (kernels, copies, fills) per lane-step: "
                 f"{sum(e.count for e in on_card) / n_prof:.1f} ({card})")
+        log_decode_window(on_card, again["decoded"], n_prof, card)
         if cfg.family == "encdec":
             leaves = [t for pair in again["state"][1] for t in pair]
             nbytes = sum(t.bits.numel() * (t.bits.element_size() + 4)
                          for t in leaves)
             bound = nbytes / HBM_BYTES_PER_S * 1e3
-            dec = decode_ms_by_output(prof, n_prof)
+            dec = decode_ms_by_output(events, n_prof)
             log(f"  cross K/V decode in that window: {dec:.3f} ms on the "
                 f"device per step ({len(leaves)} launches of "
                 f"{tuple(leaves[0].bits.shape)}, f32 out) against a byte "
                 f"bound of {bound:.3f} ms ({nbytes / 1e9:.2f} GB; "
                 f"{dec / bound * 100:.1f} % of it) ({card})")
             cross_kv_codec(cfg, again["state"][1], card)
-        del run, again, prof
+        del run, again, prof, events, on_card
         gc.collect()
+    if cfg.family == "ssm":
+        slstm_prefill_loop(cfg, params, dev, card)
+    if cfg.family == "hybrid":
+        shared_block_decode(cfg, params, card)
     log(f"  card memory: peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
         f" GiB allocated, {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
         f"held by the posit16 weights and batch ({card})")
@@ -2326,13 +2417,103 @@ def run_model_api(dev, arch, counters, card):
     serve_reduced_on_card_and_cpu(dev, arch)
 
 
+def log_decode_window(on_card, decoded, steps, card):
+    """Every posit decode of a profiled window of ``steps`` decode steps
+    (``api_generate``'s ``decoded``: its launches and the bytes they read
+    and write) beside its byte bound: the device time per launch of the
+    decode kernels the profiler recorded, times the launches (the profiler
+    may drop a window's first events)."""
+    hits = [e for e in on_card if "posit_decode_kernel" in e.key]
+    us, n = (sum(e.self_device_time_total for e in hits),
+             sum(e.count for e in hits))
+    if not (us and n and decoded["calls"]):
+        log("  every posit decode in that window: not measured (no device "
+            "time recorded)")
+        return
+    ms = us / n * decoded["calls"] / steps / 1e3
+    per_step = decoded["bytes"] / steps
+    bound = per_step / HBM_BYTES_PER_S * 1e3
+    log(f"  every posit decode in that window: {decoded['calls'] / steps:g}"
+        f" launches a lane-step ({n} of {decoded['calls']} recorded), "
+        f"{ms:.3f} ms on the device per lane-step against a byte bound of "
+        f"{bound:.3f} ms ({per_step / 1e9:.2f} GB read and written; "
+        f"{ms / bound * 100:.1f} % of it) ({card})")
+
+
+def slstm_prefill_loop(cfg, params, dev, card):
+    """The sLSTM's per-token loop at a phase 5e prefill: one sLSTM block
+    (group 0's posit16 weights) over ``API_BATCH`` rows of
+    ``RECURRENT_PROMPT`` seeded bf16 positions, host clock (median of 3,
+    each ending on a synchronize) and its device time and kernels per
+    call, beside the block's share of a prefill (one block a group)."""
+    import statistics as st
+    import torch
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.xlstm import slstm_forward
+    cell = tree_map(lambda t: t[0], params["groups"]["slstm"]["cell"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    x = torch.randn(API_BATCH, RECURRENT_PROMPT, cfg.d_model,
+                    generator=gen, device=dev).to(torch.bfloat16)
+
+    def once():
+        slstm_forward(cell, x, cfg)
+    once()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        once()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    dev_ms, kernels = device_kernels(once, reps=1)
+    log(f"  sLSTM block at prefill, {RECURRENT_PROMPT} positions one at a "
+        f"time (the reference's lax.scan over time): "
+        f"{st.median(walls):.2f} ms host clock (min {min(walls):.2f}), "
+        f"{dev_ms:.3f} ms on the device in {kernels:g} kernels "
+        f"({kernels / RECURRENT_PROMPT:.1f} a position); "
+        f"{cfg.n_layers // 8} such blocks a prefill ({card})")
+
+
+def shared_block_decode(cfg, params, card):
+    """The hybrid's shared block decodes its seven posit16 weights at each
+    of its calls, one a group: the time of one call's decodes (CUDA events
+    around ten calls back to back, none kept; and the device time per
+    launch the profiler records, times the launches), and of a pass's,
+    beside their byte bound (every pattern read and every bf16 value
+    written once); all but one call's are the same values decoded
+    again."""
+    from repro_torch.models.common import wval
+    leaves = [p["w"] for p in (*params["shared"]["attn"].values(),
+                               *params["shared"]["ffn"].values())
+              if isinstance(p, dict)]
+
+    def block():
+        for leaf in leaves:
+            wval(leaf)
+    groups = cfg.n_layers // cfg.shared_attn_every
+    ms = cuda_ms(block, reps=10, samples=5)
+    dev_ms, n = launch_ms(block, "posit_decode_kernel", len(leaves))
+    nbytes = sum(leaf.bits.numel() * (leaf.bits.element_size() + 2)
+                 for leaf in leaves)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  shared block's weight decode: {len(leaves)} launches a call, "
+        f"{ms:.3f} ms a call (CUDA events), {dev_ms:.3f} ms of it on the "
+        f"device ({n} of {10 * len(leaves)} launches recorded), against a byte bound of {bound:.3f} ms ({nbytes / 1e9:.2f}"
+        f" GB); {groups} calls a pass: {groups * ms:.3f} ms a lane-step, "
+        f"{(groups - 1) * ms:.3f} ms of it decoding the same values again "
+        f"({card})")
+
+
 def check_api_kernels(dev, report):
-    """Phase 2 at the vlm and encdec paths' geometry: the KV-attention at
-    internvl2-2b's heads (KV 8, G 2, D 128) and seamless-m4t-large-v2's
-    (KV 16, G 1, D 64), posit8 and posit16, within 2e-5; the KV append at
-    KV 16, D 64 in its three modes, bitwise; the encode and the f32 decode
-    at the cross K/V shape (4, 2048, 16, 64), bitwise, on the values the
-    path encodes (bf16 projections) and on random f32 with specials."""
+    """Phase 2 at the vlm, encdec and hybrid paths' geometry: the
+    KV-attention at internvl2-2b's heads (KV 8, G 2, D 128),
+    seamless-m4t-large-v2's (KV 16, G 1, D 64) and zamba2-7b's shared
+    attention (KV 32, G 1, D 112: lanes 28-31 of a warp hold no element of
+    a row), posit8 and posit16, within 2e-5; the KV append at KV 16, D 64
+    and at KV 32, D 112 in its three modes, bitwise; the encode and the
+    f32 decode at the cross K/V shape (4, 2048, 16, 64), bitwise, on the
+    values the path encodes (bf16 projections) and on random f32 with
+    specials."""
     import torch
     from repro_torch.configs import CONFIGS
     from repro_torch.core.formats import get_format
@@ -2344,9 +2525,11 @@ def check_api_kernels(dev, report):
     gen = torch.Generator().manual_seed(SEED + 9)
     err = report["posit_kv_attention"].get("max_abs_err") or 0.0
     vlm, encdec = CONFIGS[VLM_ARCH], CONFIGS[ENCDEC_ARCH]
+    hybrid = CONFIGS[HYBRID_ARCH]
     for cfg, sizes in (
             (vlm, (vlm.frontend_len + VLM_PROMPT + API_STEPS, 4096)),
-            (encdec, (ENCDEC_BOS + API_STEPS, ENCDEC_SRC))):
+            (encdec, (ENCDEC_BOS + API_STEPS, ENCDEC_SRC)),
+            (hybrid, (RECURRENT_PROMPT + API_STEPS, 4096))):
         KV, D = cfg.n_kv_heads, cfg.resolved_head_dim
         G = cfg.n_heads // KV
         for name in ("posit8", "posit16"):
@@ -2359,6 +2542,8 @@ def check_api_kernels(dev, report):
                     f"{query_groups(G, D)}: within 2e-5, max abs err "
                     f"{e:.3g}")
     report["posit_kv_attention"]["max_abs_err"] = err
+    check_kv_append(dev, gen, report, hybrid.n_kv_heads,
+                    hybrid.resolved_head_dim)
     KV, D = encdec.n_kv_heads, encdec.resolved_head_dim
     check_kv_append(dev, gen, report, KV, D)
     shape = (API_BATCH, ENCDEC_SRC, KV, D)
@@ -2384,12 +2569,15 @@ def check_api_kernels(dev, report):
 
 
 def time_api_kernels(dev):
-    """Phase 4 at the vlm and encdec paths' geometry: the KV-attention over
-    each path's full cache (internvl2-2b: 352 positions, KV 8, G 2, D 128;
-    seamless: 48, KV 16, G 1, D 64), the KV append of one seamless decode
-    step (KV 16, D 64, scalar length), and the cross K/V codec at (4,
-    2048, 16, 64): the decode to f32 and the encode from f32, posit8 and
-    posit16.  Returns the rows logged beside the JSON line's."""
+    """Phase 4 at the vlm, encdec, ssm and hybrid paths' geometry: the
+    KV-attention over each path's full cache (internvl2-2b: 352 positions,
+    KV 8, G 2, D 128; seamless: 48, KV 16, G 1, D 64; zamba2-7b: 544, KV
+    32, G 1, D 112), the KV append of one decode step (seamless: KV 16, D
+    64; zamba2-7b: KV 32, D 112; scalar lengths), the cross K/V codec at
+    (4, 2048, 16, 64): the decode to f32 and the encode from f32, posit8
+    and posit16; and the weight decode at zamba2-7b's and xlstm-1.3b's
+    weight shapes (``recurrent_decode_rows``).  Returns the rows logged
+    beside the JSON line's."""
     import torch
     from repro_torch.configs import CONFIGS
     from repro_torch.core.formats import get_format
@@ -2399,13 +2587,22 @@ def time_api_kernels(dev):
                                                  posit_encode_torch)
     gen = torch.Generator().manual_seed(SEED + 10)
     vlm, encdec = CONFIGS[VLM_ARCH], CONFIGS[ENCDEC_ARCH]
+    hybrid = CONFIGS[HYBRID_ARCH]
     rows = []
     for cfg, S in ((vlm, vlm.frontend_len + VLM_PROMPT + API_STEPS),
-                   (encdec, ENCDEC_BOS + API_STEPS)):
+                   (encdec, ENCDEC_BOS + API_STEPS),
+                   (hybrid, RECURRENT_PROMPT + API_STEPS)):
         KV, D = cfg.n_kv_heads, cfg.resolved_head_dim
         for name in ("posit8", "posit16"):
             rows.append(kv_attention_row(gen, get_format(name), S, KV,
                                          cfg.n_heads // KV, D, dev))
+    for name in ("posit8", "posit16"):
+        rows.append(kv_append_row(
+            dev, gen, get_format(name), RECURRENT_PROMPT + API_STEPS,
+            hybrid.n_kv_heads, hybrid.resolved_head_dim,
+            torch.tensor(RECURRENT_PROMPT + 8, dtype=torch.int32,
+                         device=dev))[0])
+    rows += recurrent_decode_rows(dev)
     KV, D = encdec.n_kv_heads, encdec.resolved_head_dim
     shape = (API_BATCH, ENCDEC_SRC, KV, D)
     x = torch.randn(shape, generator=gen).to(torch.bfloat16).float().to(dev)
@@ -2434,6 +2631,54 @@ def time_api_kernels(dev):
                              samples=5),
             bound_ms=x.numel() * (4 + e) / HBM_BYTES_PER_S * 1e3,
             bound_by="bytes", library_ms=None))
+    return rows
+
+
+def recurrent_decode_rows(dev):
+    """The weight decode (posit16 bits to bf16; ``w_h`` to f32, as the
+    sLSTM reads it) at each weight shape of zamba2-7b (in_proj, out_proj,
+    the shared block's three shapes, the unembedding) and xlstm-1.3b (the
+    mLSTM's four shapes, the sLSTM's ``w_x``, ``w_h`` and ``w_out``, the
+    unembedding), on random patterns; the plain version timed at the
+    largest layer weight of each."""
+    import torch
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels.posit_codec import (posit_decode,
+                                                 posit_decode_torch)
+    fmt = get_format("posit16")
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = []
+    for arch, shape, out_dtype, plain in (
+            (HYBRID_ARCH, (3584, 14576), bf16, True),
+            (HYBRID_ARCH, (7168, 3584), bf16, False),
+            (HYBRID_ARCH, (3584, 3584), bf16, False),
+            (HYBRID_ARCH, (3584, 14336), bf16, False),
+            (HYBRID_ARCH, (14336, 3584), bf16, False),
+            (HYBRID_ARCH, (32000, 3584), bf16, False),
+            (SSM_ARCH, (2048, 4096), bf16, False),
+            (SSM_ARCH, (4096, 4096), bf16, True),
+            (SSM_ARCH, (4096, 2048), bf16, False),
+            (SSM_ARCH, (2048, 8192), bf16, False),
+            (SSM_ARCH, (4, 512, 2048), f32, False),
+            (SSM_ARCH, (2048, 2048), bf16, False),
+            (SSM_ARCH, (50304, 2048), bf16, False)):
+        b = torch.randint(-(1 << 15), 1 << 15, shape, device=dev,
+                          dtype=torch.int32).to(torch.int16)
+        out_size = 2 if out_dtype == bf16 else 4
+        plain_ms = None
+        if plain:
+            plain_ms = cuda_ms(lambda: posit_decode_torch(b, fmt, out_dtype),
+                               reps=2, samples=5)
+        rows.append(dict(
+            name="posit_decode",
+            shape=[*shape, f"int16->{str(out_dtype)[6:]}", arch],
+            ms=cuda_ms(lambda: posit_decode(b, fmt, out_dtype)),
+            device_ms=device_ms(lambda: posit_decode(b, fmt, out_dtype),
+                                "posit_decode_kernel"),
+            plain_ms=plain_ms,
+            bound_ms=b.numel() * (2 + out_size) / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes", library_ms=None))
+        del b
     return rows
 
 
@@ -3695,9 +3940,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  phase 5b in {time.perf_counter() - t0:.1f} s ({card})")
 
-    for tag, arch in (("5c", VLM_ARCH), ("5d", ENCDEC_ARCH)):
+    for tag, arch, lanes in (("5c", VLM_ARCH, "two KV lanes"),
+                             ("5d", ENCDEC_ARCH, "two KV lanes"),
+                             ("5e", SSM_ARCH, "one lane, no KV cache"),
+                             ("5f", HYBRID_ARCH, "two KV lanes")):
         phase(f"phase {tag}: {arch} at full width through prefill and "
-              f"{API_STEPS} decode steps, two KV lanes")
+              f"{API_STEPS} decode steps, {lanes}")
         t0 = time.perf_counter()
         run_model_api(dev, arch, counters, card)
         log(f"  phase {tag} in {time.perf_counter() - t0:.1f} s ({card})")

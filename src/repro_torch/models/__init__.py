@@ -1,6 +1,7 @@
-"""Model factory: ``ModelConfig.family`` → model class.  The port has the
-``dense``, ``moe``, ``vlm`` and ``encdec`` families; ``ssm`` and ``hybrid``
-wait for later slices (ROADMAP.md, queue A item A3)."""
+"""Model factory: ``ModelConfig.family`` → model class, for the
+reference's six families: ``dense``, ``moe`` and ``vlm`` (``DecoderLM``),
+``encdec`` (``EncDecLM``), ``ssm`` (``XLSTMLM``) and ``hybrid``
+(``ZambaLM``)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -8,9 +9,11 @@ from repro_torch.core.policy import QuantPolicy
 
 from .encdec import EncDecLM
 from .transformer import DecoderLM
+from .xlstm_model import XLSTMLM
+from .zamba import ZambaLM
 
 FAMILIES = {"dense": DecoderLM, "moe": DecoderLM, "vlm": DecoderLM,
-            "encdec": EncDecLM}
+            "encdec": EncDecLM, "ssm": XLSTMLM, "hybrid": ZambaLM}
 
 
 def build_model(cfg: ModelConfig, policy: QuantPolicy = QuantPolicy(),
@@ -18,6 +21,6 @@ def build_model(cfg: ModelConfig, policy: QuantPolicy = QuantPolicy(),
     """The model of ``cfg`` on ``device`` (None: the card)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (ROADMAP.md, "
-            f"queue A item A3)")
+            f"model family {cfg.family!r} is none of the reference's "
+            f"({', '.join(FAMILIES)})")
     return FAMILIES[cfg.family](cfg, policy, device=device)

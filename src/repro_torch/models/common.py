@@ -31,7 +31,7 @@ class ParamSpec(NamedTuple):
     """Shape and initializer of one parameter (of one layer)."""
 
     shape: tuple
-    init: str = "normal"            # normal | zeros
+    init: str = "normal"            # normal | zeros | ones | uniform_pm
     scale: Optional[float] = None   # normal std; None → 1/sqrt(fan_in)
 
 
@@ -40,16 +40,32 @@ def param(shape: Sequence[int], init: str = "normal",
     return ParamSpec(tuple(int(s) for s in shape), init, scale)
 
 
+def _scale(spec: ParamSpec) -> Optional[float]:
+    """A normal leaf's std: its own, else the reference's 1/sqrt(fan_in)."""
+    if spec.init != "normal" or spec.scale is not None:
+        return spec.scale
+    shape = spec.shape
+    return 1.0 / math.sqrt(shape[-2] if len(shape) >= 2 else shape[-1])
+
+
+def stacked(n: int, specs):
+    """``specs`` with a leading axis of ``n`` on every leaf: ``n`` layers
+    stacked inside one layer of an outer stack (the reference's two-level
+    ``stacked``).  A normal leaf keeps one layer's fan-in scale."""
+    if isinstance(specs, ParamSpec):
+        return ParamSpec((n, *specs.shape), specs.init, _scale(specs))
+    return {k: stacked(n, v) for k, v in specs.items()}
+
+
 def _fill(t: torch.Tensor, spec: ParamSpec, gen: torch.Generator) -> None:
     if spec.init == "zeros":
         t.zero_()
+    elif spec.init == "ones":
+        t.fill_(1.0)
     elif spec.init == "normal":
-        shape = spec.shape
-        scale = spec.scale
-        if scale is None:       # the reference's 1/sqrt(fan_in)
-            scale = 1.0 / math.sqrt(shape[-2] if len(shape) >= 2
-                                    else shape[-1])
-        t.normal_(0.0, scale, generator=gen)
+        t.normal_(0.0, _scale(spec), generator=gen)
+    elif spec.init == "uniform_pm":     # the SSM's A_log: uniform on [1, 16)
+        t.uniform_(1.0, 16.0, generator=gen)
     else:
         raise ValueError(spec.init)
 

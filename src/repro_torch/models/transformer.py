@@ -40,8 +40,8 @@ class DecoderLM:
                  device=None):
         if cfg.frontend not in ("none", "vision_stub"):
             raise NotImplementedError(
-                f"DecoderLM with the {cfg.frontend!r} frontend is not ported "
-                f"yet (ROADMAP.md, queue A item A3)")
+                f"DecoderLM has no {cfg.frontend!r} frontend: the "
+                f"reference's audio model is the encdec family (EncDecLM)")
         self.cfg = cfg
         self.policy = policy
         self.device = resolve_device(device)

@@ -126,6 +126,9 @@ class _Lane:
         return toks
 
 
+_RECURRENT = ("its prefill takes no per-row prompt lengths, and its "
+              "recurrent state is not the per-row KV cache the slots "
+              "install into")
 # families whose model API the engine's admission and per-row caches do not
 # fit, with the reason (the reference's engine fails on each of them)
 _NOT_SERVED = {
@@ -133,6 +136,8 @@ _NOT_SERVED = {
            "passes (patch rows would shift each row's token offsets)",
     "encdec": "its self-attention cache has one length for every row, not "
               "the per-row lengths of the engine's slots",
+    "ssm": _RECURRENT,
+    "hybrid": _RECURRENT,
 }
 
 

@@ -21,7 +21,10 @@ the card, bitwise equal to the in-process run there; the KV-attention and
 the expert-stack decode at granite-moe-3b-a800m's shapes, one MoE layer
 the same bits on a second call; the KV-attention at internvl2-2b's and
 seamless-m4t-large-v2's heads (G = 2, D = 128; G = 1, D = 64) and the
-reduced vlm and encdec models on the card near the CPU; and the ingest
+reduced vlm and encdec models on the card near the CPU; the KV-attention
+and the KV append at zamba2-7b's shared attention (KV = 32, G = 1, D =
+112) and the reduced ssm and hybrid models on the card near the CPU; and
+the ingest
 worker pool's workers on the card (a spawned worker refusing the stream
 kernels' plain versions on CUDA tensors), their digests equal to the
 in-process run.
@@ -810,6 +813,94 @@ def test_reduced_vlm_and_encdec_on_the_card_near_the_cpu(arch, dev):
     assert torch.allclose(l_card.float().cpu(), l_cpu.float(), rtol=2e-2,
                           atol=2e-2)
     assert posit_kv_attention.launches == before[1] + 3 * cfg.n_layers
+
+
+@pytest.mark.parametrize("name", ["posit8", "posit16"])
+@pytest.mark.parametrize("S", [544, 4096])
+def test_kv_attention_zamba_geometry(name, S, dev):
+    """zamba2-7b's shared attention: 32 KV heads of one query row each at
+    D = 112, where lanes 28-31 of each warp hold no element of a row (a
+    lane takes 4), within 2e-5 of the plain version."""
+    from repro_torch.kernels.posit_codec import posit_encode_torch
+    from repro_torch.kernels.posit_kv_attention import (
+        lane_plan, posit_kv_attention, posit_kv_attention_torch,
+        query_groups)
+    fmt = get_format(name)
+    B, KV, G, D = 4, 32, 1, 112
+    assert query_groups(G, D) == (1, 1) and lane_plan(1, D) == (4, 2)
+    g = torch.Generator().manual_seed(21)
+    q = torch.randn(B, KV, G, D, generator=g).to(dev)
+    kb, vb = (posit_encode_torch(torch.randn(B, S, KV, D, generator=g),
+                                 fmt).to(dev) for _ in range(2))
+    lengths = torch.tensor([1, S // 3, S - 1, S], dtype=torch.int32,
+                           device=dev)
+    k = posit_kv_attention(q, kb, vb, lengths, fmt)
+    p = posit_kv_attention_torch(q, kb, vb, lengths, fmt)
+    assert torch.allclose(k, p, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("name", ["posit8", "posit16"])
+@pytest.mark.parametrize("mode", ["decode", "prefill", "scalar"])
+def test_kv_append_kernel_zamba_geometry_bitwise(name, mode, dev):
+    """The KV append at zamba2-7b's shared attention (KV = 32, D = 112: a
+    row of 3584 values) in its three modes, bf16 rows in, bitwise against
+    the plain version, the other layer untouched."""
+    from repro_torch.kernels.posit_codec import (posit_kv_append,
+                                                 posit_kv_append_torch)
+    B, cap, KV, D = 4, 544, 32, 112
+    s_new, length = {"decode": (1, [0, cap - 1, cap, 517]),
+                     "prefill": (512, [0, 0, 0, 0]),
+                     "scalar": (1, 512)}[mode]
+    g = torch.Generator().manual_seed(22 + s_new)
+    fmt, store, (k_new, v_new) = _kv_append_case(
+        g, name, torch.bfloat16, B, cap, KV, D, s_new, dev)
+    length = torch.tensor(length, dtype=torch.int32, device=dev)
+    want = [t.clone() for t in store]
+    posit_kv_append_torch(k_new, v_new, want[0][1], want[1][1], length, fmt)
+    before = posit_kv_append.launches
+    posit_kv_append(k_new, v_new, store[0][1], store[1][1], length, fmt)
+    assert posit_kv_append.launches == before + 1
+    for got, w in zip(store, want):
+        assert torch.equal(got, w)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-7b"])
+def test_reduced_ssm_and_hybrid_on_the_card_near_the_cpu(arch, dev):
+    """The reduced ssm and hybrid models with posit16 weights (and a posit8
+    KV cache for the hybrid's shared attention) on the card and on the
+    CPU, the same weights and prompt: prefill over two chunks and 3 decode
+    steps fed the CPU's greedy tokens, logits within 2e-2; the hybrid's
+    KV-attention kernel launched once a group and decode step."""
+    from repro_torch.configs import CONFIGS, reduced
+    from repro_torch.core.policy import AGGRESSIVE_POLICY
+    from repro_torch.core.quant import quantize_params
+    from repro_torch.kernels.posit_kv_attention import posit_kv_attention
+    from repro_torch.models import build_model
+    from repro_torch.models.common import to_device
+    cfg = reduced(CONFIGS[arch])
+    cpu = build_model(cfg, AGGRESSIVE_POLICY, device="cpu")
+    on_card = build_model(cfg, AGGRESSIVE_POLICY, device=dev)
+    params = quantize_params(cpu.init(torch.Generator().manual_seed(23)),
+                             get_format("posit16"), cast_rest=torch.bfloat16)
+    card_params = to_device(params, dev)
+    g = torch.Generator().manual_seed(24)
+    batch = {"tokens": torch.randint(1, cfg.vocab, (3, 512), generator=g)}
+    l_cpu, s_cpu = cpu.prefill(params, batch, 515)
+    before = posit_kv_attention.launches
+    l_card, s_card = on_card.prefill(card_params,
+                                     {"tokens": batch["tokens"].to(dev)}, 515)
+    for step in range(3):
+        assert torch.allclose(l_card.float().cpu(), l_cpu.float(),
+                              rtol=2e-2, atol=2e-2), step
+        tok = l_cpu[:, -1, :cfg.vocab].argmax(-1)[:, None]
+        l_cpu, s_cpu = cpu.decode_step(params, tok, s_cpu)
+        l_card, s_card = on_card.decode_step(card_params, tok.to(dev),
+                                             s_card)
+    assert torch.allclose(l_card.float().cpu(), l_cpu.float(), rtol=2e-2,
+                          atol=2e-2)
+    groups = cfg.n_layers // cfg.shared_attn_every if arch == "zamba2-7b" \
+        else 0
+    assert posit_kv_attention.launches == before + 3 * groups
 
 
 # Run as its own process: the spawned pool workers import it as

@@ -79,8 +79,8 @@ def test_imports_with_jax_and_repro_blocked():
 
 
 def test_slice_names_import_with_jax_and_repro_blocked():
-    """The worker pool, the fault-tolerance layer and the MoE module by the
-    names the reference exports them under."""
+    """The worker pool, the fault-tolerance layer, the MoE module and the
+    recurrent blocks by the names the reference exports them under."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -95,6 +95,11 @@ def test_slice_names_import_with_jax_and_repro_blocked():
         "from repro_torch.models.attention import (attention_train,\n"
         "    chunked_attention, cross_attention)\n"
         "from repro_torch.models.encdec import EncDecLM\n"
+        "from repro_torch.models import XLSTMLM, ZambaLM\n"
+        "from repro_torch.models.ssm import (SSMCache, ssm_decode,\n"
+        "    ssm_prefill, ssm_sequential_ref)\n"
+        "from repro_torch.models.xlstm import (MLSTMCache, SLSTMCache,\n"
+        "    mlstm_forward, mlstm_sequential_ref, slstm_forward)\n"
         "print('ok')\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr
@@ -144,9 +149,12 @@ def _serving_engine(dev):
     lambda dev: build_model(reduced(CONFIGS["internvl2-2b"]), device=dev),
     lambda dev: build_model(reduced(CONFIGS["seamless-m4t-large-v2"]),
                             device=dev),
+    lambda dev: build_model(reduced(CONFIGS["xlstm-1.3b"]), device=dev),
+    lambda dev: build_model(reduced(CONFIGS["zamba2-7b"]), device=dev),
 ], ids=["StreamEngine", "make_cough_scorer", "detect_rpeaks", "build_model",
         "ServingEngine", "launch.serve", "quickstart", "build_model_moe",
-        "run_worker_fleet", "build_model_vlm", "build_model_encdec"])
+        "run_worker_fleet", "build_model_vlm", "build_model_encdec",
+        "build_model_ssm", "build_model_hybrid"])
 def test_entry_points_need_the_card_unless_told(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

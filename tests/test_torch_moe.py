@@ -24,6 +24,7 @@ The padded-versus-solo and engine comparisons take their JAX side from a
 subprocess that compiles with every bf16 rounding kept (see
 ``REFERENCE_SCRIPT``).
 """
+import dataclasses
 import functools
 import os
 import subprocess
@@ -52,7 +53,8 @@ from repro_torch.core.arith import backend_overrides
 from repro_torch.core.formats import POSIT16
 from repro_torch.core.policy import AGGRESSIVE_POLICY
 from repro_torch.core.quant import PositTensor, quantize_params
-from repro_torch.models import DecoderLM, EncDecLM, build_model
+from repro_torch.models import (DecoderLM, EncDecLM, XLSTMLM, ZambaLM,
+                                 build_model)
 from repro_torch.models import moe as tmoe
 from repro_torch.models.common import unstack
 from repro_torch.models.convert import params_from_jax
@@ -101,11 +103,14 @@ def test_build_model_is_a_decoder_lm_for_moe_and_refuses_the_rest():
     for name in (*ARCHS, "internvl2-2b"):
         assert type(build_model(reduced(CONFIGS[name]),
                                 device="cpu")) is DecoderLM
-    assert type(build_model(reduced(CONFIGS["seamless-m4t-large-v2"]),
-                            device="cpu")) is EncDecLM
-    for name in ("xlstm-1.3b", "zamba2-7b"):
-        with pytest.raises(NotImplementedError, match="A3"):
-            build_model(reduced(CONFIGS[name]), device="cpu")
+    for name, cls in (("seamless-m4t-large-v2", EncDecLM),
+                      ("xlstm-1.3b", XLSTMLM), ("zamba2-7b", ZambaLM)):
+        assert type(build_model(reduced(CONFIGS[name]),
+                                device="cpu")) is cls
+    # a family outside the reference's six is refused
+    other = dataclasses.replace(reduced(CONFIGS[ARCHS[0]]), family="rwkv")
+    with pytest.raises(NotImplementedError, match="'rwkv'"):
+        build_model(other, device="cpu")
 
 
 def test_moe_tree_carried_over_and_quantized_bits_equal(pair):
