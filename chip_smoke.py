@@ -108,7 +108,10 @@ Phases, each fatal on failure:
      rows of 512 tokens (two mLSTM chunks), 272 weight decodes a prefill
      and a decode step (``w_h`` once a pass), every posit decode's device
      ms per lane-step beside its byte bound, and one sLSTM block's
-     per-token loop at prefill (host clock, device time and kernels);
+     per-token loop at prefill (host clock, device time and kernels); the
+     reduced config at 512 tokens over four seeds, the card's and the
+     CPU's logits each held against a witness on the CPU whose every sum
+     is taken in f64 (``reduced_against_witness``);
   5f. the hybrid family the same way: zamba2-7b at full width (13 groups
      of 6 Mamba2 layers, each followed by the shared attention + MLP
      block, then a 3-layer tail; shared attention 32 heads of 112), 4
@@ -174,6 +177,7 @@ and prints no result.  It imports nothing of jax and nothing of ``repro``.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -186,6 +190,9 @@ N_PATIENTS = 64
 N_WINDOWS = 4
 MAX_BATCH = 32
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+L2_BYTES = 50 * 2 ** 20        # H100 SXM L2 cache
+COLD_BYTES = 4 * L2_BYTES      # distinct input bytes a timed call reads, so
+                               # that it reads them from device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 FLEET_ROUND_LAUNCHES = 8221    # the 64-patient fleet's posit_round launches
 FLEET_MATMUL_ROUND_CALLS = 12  # ... and its posit_matmul_round calls
@@ -245,6 +252,10 @@ PAPER_F1 = {"fp32": "0.989", "posit16": "0.989", "posit10": "0.975",
 PAPER_AUC = {"fp32": "0.919", "posit16": "0.876", "fp16": "0.763"}
 IEEE_FORMATS = ("fp16", "bfloat16", "fp8e5m2", "fp8e4m3")
 LOGIT_TOL = dict(rtol=2e-2, atol=2e-2)
+RECURRENT_SEEDS = (0, 1, 2, 3)  # phases 5e, 5f: the reduced configs' seeds
+WITNESS_FACTOR = 1.5           # phases 5e, 5f: the card's largest distance
+                               # from the exact-sum witness over the seeds,
+                               # over the CPU's (both in LOGIT_TOL tiers)
 INGEST_WINDOWS = 2             # phase 7: windows per patient
 INGEST_MAX_BATCH = 16
 INGEST_STALLED = "ecg-031"     # silent after its first frame, evicted
@@ -282,14 +293,32 @@ def cuda_ms(fn, reps: int = 10, samples: int = 21) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernels, reps: int = 50) -> float:
+def per_launch_ms(events, kernels, launches):
+    """(device ms, launches recorded) of ``launches`` launches of the
+    kernels whose names contain one of ``kernels`` (a name or a tuple of
+    names), from a profile's ``key_averages``: the mean device time of the
+    launches it recorded, times ``launches`` (the profiler may drop some of
+    a window's events, which would make a plain sum short); NaN if it
+    recorded none."""
+    from torch.autograd import DeviceType
+    names = (kernels,) if isinstance(kernels, str) else tuple(kernels)
+    hits = [e for e in events if e.device_type == DeviceType.CUDA
+            and any(k in e.key for k in names)]
+    n = sum(e.count for e in hits)
+    us = sum(getattr(e, "self_device_time_total", 0) for e in hits)
+    return (us / n * launches / 1e3 if n and us else float("nan")), n
+
+
+def device_ms(fn, kernels, reps: int = 50, launches=None) -> float:
     """Mean device time per call of ``fn``: the device time of every kernel
     whose name contains one of ``kernels`` (a name or a tuple of names: a
     combine or reduction kernel the call launches is counted), from
     ``torch.profiler`` over ``reps`` calls (no host time), divided by the
-    number of calls.  A profile that recorded none of them (the profiler
-    drops a window's events now and then) is taken again, up to
-    ``PROFILE_TRIES`` profiles; NaN if none recorded any."""
+    number of calls.  With ``launches``, the launches of ``kernels`` a call
+    makes, the time is ``per_launch_ms``'s, which a dropped event does not
+    make short.  A profile that recorded none of them (the profiler drops a
+    window's events now and then) is taken again, up to ``PROFILE_TRIES``
+    profiles; NaN if none recorded any."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     names = (kernels,) if isinstance(kernels, str) else tuple(kernels)
@@ -300,32 +329,17 @@ def device_ms(fn, kernels, reps: int = 50) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages()
-                if any(k in e.key for k in names)]
+        events = prof.key_averages()
+        if launches is not None:
+            ms, n = per_launch_ms(events, names, launches * reps)
+            if n:
+                return ms / reps
+            continue
+        hits = [e for e in events if any(k in e.key for k in names)]
         us = sum(getattr(e, "self_device_time_total", 0) for e in hits)
         if us:
             return us / reps / 1e3
     return float("nan")
-
-
-def launch_ms(fn, kernel, launches, reps: int = 10):
-    """(device ms per call, launches recorded) of ``fn``, which launches
-    ``kernel`` ``launches`` times a call: the mean device time of the
-    launches ``torch.profiler`` records over ``reps`` calls, times
-    ``launches`` (the profiler may drop some of a window's events, which
-    would make ``device_ms``'s total over the calls short)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel in e.key]
-    n = sum(e.count for e in hits)
-    us = sum(e.self_device_time_total for e in hits)
-    return (us / n * launches / 1e3 if n else float("nan")), n
 
 
 def device_kernels(fn, reps: int = 50):
@@ -1598,15 +1612,16 @@ def check_serve(cfg, subs, comps, summary, load, launches):
     return by_rid
 
 
-def reduced_batch(cfg):
+def reduced_batch(cfg, seed=SEED):
     """Four prompts of the reduced config from a numpy seed: ragged, with
     their lengths, where the family is served by ``ServingEngine``; of 16
-    tokens after 8 f32 patch rows (vlm) or 12 f32 source frames (encdec),
-    or alone (ssm, hybrid), where the prefill takes no lengths."""
+    tokens after 8 f32 patch rows (vlm) or 12 f32 source frames (encdec);
+    of ``RECURRENT_PROMPT`` tokens (two chunks of the scans, so the carry
+    across chunks runs) where the prefill takes no lengths (ssm, hybrid)."""
     import numpy as np
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     if cfg.family in ("ssm", "hybrid"):
-        return {"tokens": rng.integers(1, cfg.vocab, (4, 16))}
+        return {"tokens": rng.integers(1, cfg.vocab, (4, RECURRENT_PROMPT))}
     if cfg.family == "vlm":
         return {"tokens": rng.integers(1, cfg.vocab, (4, 16)),
                 "frontend": rng.normal(size=(4, cfg.frontend_len,
@@ -1623,90 +1638,249 @@ def reduced_batch(cfg):
     return {"tokens": toks, "lengths": lens}
 
 
-def serve_reduced_on_card_and_cpu(dev, arch=SERVE_ARCH):
-    """The reduced config, run by the port on the card (the kernel route)
-    and on the CPU (the plain route) with the same weights: prefill
-    (``reduced_batch``, into a cache of 8 positions more than its tokens)
-    and four decode steps fed the CPU's greedy tokens;
-    logits within 2e-2 and the same greedy tokens wherever the top-2
-    margin exceeds 4e-2."""
+def exact_sums():
+    """A ``TorchFunctionMode`` under which every sum a model computes (the
+    products of ``matmul``, ``@`` and ``einsum``, ``sum``, ``mean``,
+    ``cumsum``, ``softmax``) is carried out in f64 and rounded once to its
+    operands' dtype: the model's own roundings of every value it keeps,
+    without the accumulation-order error of either device.  The witness
+    the card's and the CPU's logits are both held against."""
     import torch
-    from repro_torch.configs import CONFIGS, reduced
+    from torch.overrides import TorchFunctionMode
+    sums = {torch.matmul, torch.Tensor.__matmul__, torch.einsum, torch.sum,
+            torch.Tensor.sum, torch.mean, torch.Tensor.mean, torch.cumsum,
+            torch.Tensor.cumsum, torch.softmax, torch.Tensor.softmax}
+
+    def up(a):
+        if isinstance(a, torch.Tensor) and a.is_floating_point():
+            return a.double()
+        return a
+
+    class ExactSums(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            floats = [a for a in args if isinstance(a, torch.Tensor)
+                      and a.is_floating_point()]
+            if func not in sums or not floats:
+                return func(*args, **kwargs)
+            return func(*map(up, args), **kwargs).to(floats[0].dtype)
+    return ExactSums()
+
+
+def reduced_run(cfg, raw, batch, d, fed=None, exact=False):
+    """The reduced config on device ``d`` with posit16 weights from ``raw``
+    (numpy leaves): prefill of ``batch`` into a cache of 8 positions more
+    than its tokens, then four decode steps, each fed the greedy token of
+    ``fed``'s logits at that step (its own, without ``fed``); under
+    ``exact_sums`` with ``exact``.  Returns the five steps' last-position
+    logits, f32 on the CPU."""
+    import contextlib
+    import torch
     from repro_torch.core.formats import get_format
     from repro_torch.core.policy import AGGRESSIVE_POLICY
     from repro_torch.core.quant import quantize_params
     from repro_torch.models import build_model
-    from repro_torch.models.common import tree_map
     from repro_torch.models.convert import params_from_jax
-    cfg = reduced(CONFIGS[arch])
-    cpu = build_model(cfg, AGGRESSIVE_POLICY, device="cpu")
-    raw = tree_map(lambda t: t.numpy(),
-                   cpu.init(torch.Generator().manual_seed(SEED)))
-    batch = reduced_batch(cfg)
-    outs = {}
-    for d in ("cpu", dev):
-        model = build_model(cfg, AGGRESSIVE_POLICY, device=d)
-        params = quantize_params(params_from_jax(raw, d),
-                                 get_format("posit16"),
-                                 cast_rest=torch.bfloat16)
+    model = build_model(cfg, AGGRESSIVE_POLICY, device=d)
+    params = quantize_params(params_from_jax(raw, d), get_format("posit16"),
+                             cast_rest=torch.bfloat16)
+    with exact_sums() if exact else contextlib.nullcontext():
         logits, caches = model.prefill(
             params, {k: torch.from_numpy(v).to(d) for k, v in batch.items()},
             batch["tokens"].shape[1] + 8)
         steps = [logits[:, -1].float().cpu()]
         for s in range(4):
-            fed = outs["cpu"][s] if d != "cpu" else steps[-1]
-            nxt = fed[:, :cfg.vocab].argmax(-1)
-            logits, caches = model.decode_step(params, nxt[:, None].to(d),
-                                               caches)
+            nxt = (steps[-1] if fed is None else fed[s])[:, :cfg.vocab]
+            logits, caches = model.decode_step(
+                params, nxt.argmax(-1)[:, None].to(d), caches)
             steps.append(logits[:, -1].float().cpu())
-        outs[d] = steps
+    return steps
+
+
+def tier_ratio(a, b):
+    """The largest |a - b| over the ``LOGIT_TOL`` tier at b (``allclose``
+    holds where it is at most 1)."""
+    tol = LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] * b.abs()
+    return float(((a - b).abs() / tol).max())
+
+
+def greedy_held(a, ref):
+    """(equal, clear, held): ``a``'s greedy tokens against ``ref``'s, held
+    equal where ``ref``'s top-2 margin exceeds 4e-2, as in
+    tests/test_torch_serve.py (a closer pair may swap under bf16 rounding
+    differences of either device)."""
+    import torch
+    same = a.argmax(-1) == ref.argmax(-1)
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 4e-2
+    return int(same.sum()), int(clear.sum()), bool(torch.all(same[clear]))
+
+
+def reduced_against_witness(dev, arch):
+    """The recurrent families' reduced check: for each seed of
+    ``RECURRENT_SEEDS``, the two-chunk prompt on the card and on the CPU
+    (the card fed the CPU's greedy tokens) and under ``exact_sums`` on the
+    CPU (the witness, fed the same).  Over that prompt the model carries
+    either device's order of summation past the 2e-2 tier between the two,
+    and the CPU's own logits can lie beyond the tier from the witness; so
+    the card's logits are held to the witness: the card's largest distance
+    over the seeds (in tiers of ``LOGIT_TOL``) within ``WITNESS_FACTOR``
+    times the CPU's (or of the tier, where the CPU stays within it), and
+    each device's greedy tokens equal to the witness's where its top-2
+    margin exceeds 4e-2.  Every seed is logged before a failure raises."""
+    import torch
+    from repro_torch.configs import CONFIGS, reduced
+    from repro_torch.core.policy import AGGRESSIVE_POLICY
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    cfg = reduced(CONFIGS[arch])
+    r_card, r_cpu, swapped = [], [], []
+    for seed in RECURRENT_SEEDS:
+        raw = tree_map(lambda t: t.numpy(),
+                       build_model(cfg, AGGRESSIVE_POLICY, device="cpu")
+                       .init(torch.Generator().manual_seed(seed)))
+        batch = reduced_batch(cfg, seed)
+        cpu = reduced_run(cfg, raw, batch, "cpu")
+        card = reduced_run(cfg, raw, batch, dev, fed=cpu)
+        ref = reduced_run(cfg, raw, batch, "cpu", fed=cpu, exact=True)
+        r_card.append(max(tier_ratio(a, w) for a, w in zip(card, ref)))
+        r_cpu.append(max(tier_ratio(b, w) for b, w in zip(cpu, ref)))
+        held = {"card": [0, 0], "CPU": [0, 0]}
+        for a, b, w in zip(card, cpu, ref):
+            for got, who in ((a, "card"), (b, "CPU")):
+                e, c, ok = greedy_held(got[:, :cfg.vocab], w[:, :cfg.vocab])
+                held[who][0] += e
+                held[who][1] += c
+                if not ok:
+                    swapped.append(f"seed {seed} {who}")
+        log(f"  reduced {arch} seed {seed}, prefill of "
+            f"{tuple(batch['tokens'].shape)} + 4 decode steps, from the "
+            f"exact-sum witness: card "
+            f"{max(max_abs_err(a, w) for a, w in zip(card, ref)):.4g} "
+            f"({r_card[-1]:.3f} tiers), CPU "
+            f"{max(max_abs_err(b, w) for b, w in zip(cpu, ref)):.4g} "
+            f"({r_cpu[-1]:.3f} tiers); card from CPU "
+            f"{max(max_abs_err(a, b) for a, b in zip(card, cpu)):.4g}; "
+            f"greedy tokens equal to the witness's in {held['card'][0]} "
+            f"(card) and {held['CPU'][0]} (CPU) of {5 * len(batch['tokens'])}"
+            f", {held['CPU'][1]} with a top-2 margin above 4e-2")
+    if swapped:
+        raise AssertionError(f"reduced {arch}: a greedy token with a clear "
+                             f"margin differs from the witness's: {swapped}")
+    bound = WITNESS_FACTOR * max(1.0, max(r_cpu))
+    if max(r_card) > bound:
+        raise AssertionError(f"reduced {arch}: card logits {max(r_card):.3g}"
+                             f" tiers from the exact-sum witness, over "
+                             f"{bound:.3g} (the CPU's {max(r_cpu):.3g})")
+    log(f"  reduced {arch} over seeds {RECURRENT_SEEDS}: the card at most "
+        f"{max(r_card):.3f} tiers from the witness, the CPU {max(r_cpu):.3f}"
+        f" (bound {bound:.3g}); every clear greedy token equal")
+
+
+def serve_reduced_on_card_and_cpu(dev, arch=SERVE_ARCH):
+    """The reduced config, run by the port on the card (the kernel route)
+    and on the CPU (the plain route) with the same weights: prefill
+    (``reduced_batch``) and four decode steps fed the CPU's greedy tokens;
+    logits within 2e-2 and the same greedy tokens wherever the top-2
+    margin exceeds 4e-2.  The recurrent families (ssm, hybrid) are held
+    against a witness instead (``reduced_against_witness``)."""
+    import torch
+    from repro_torch.configs import CONFIGS, reduced
+    from repro_torch.core.policy import AGGRESSIVE_POLICY
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    cfg = reduced(CONFIGS[arch])
+    if cfg.family in ("ssm", "hybrid"):
+        reduced_against_witness(dev, arch)
+        return
+    raw = tree_map(lambda t: t.numpy(),
+                   build_model(cfg, AGGRESSIVE_POLICY, device="cpu")
+                   .init(torch.Generator().manual_seed(SEED)))
+    batch = reduced_batch(cfg)
+    cpu = reduced_run(cfg, raw, batch, "cpu")
+    card = reduced_run(cfg, raw, batch, dev, fed=cpu)
     worst, n_equal, n_clear = 0.0, 0, 0
-    for s, (a, b) in enumerate(zip(outs[dev], outs["cpu"])):
+    for s, (a, b) in enumerate(zip(card, cpu)):
         if not torch.allclose(a, b, **LOGIT_TOL):
             raise AssertionError(f"reduced {arch} step {s}: card "
                                  f"logits {max_abs_err(a, b):.3g} from "
                                  f"the CPU's")
         a, b = a[:, :cfg.vocab], b[:, :cfg.vocab]
-        same = a.argmax(-1) == b.argmax(-1)
-        # a greedy token is held equal where the CPU's top two logits are
-        # more than 4e-2 apart, as in tests/test_torch_serve.py: a closer
-        # pair may swap under bf16 rounding differences of either device
-        top2 = b.topk(2, dim=-1).values
-        clear = (top2[:, 0] - top2[:, 1]) > 4e-2
-        if not torch.all(same[clear]):
+        e, c, ok = greedy_held(a, b)
+        if not ok:
             raise AssertionError(f"reduced {arch} step {s}: greedy "
                                  f"tokens differ between card and CPU")
         worst = max(worst, max_abs_err(a, b))
-        n_equal += int(same.sum())
-        n_clear += int(clear.sum())
+        n_equal += e
+        n_clear += c
     log(f"  reduced {arch} on the card vs the CPU: prefill + 4 decode "
         f"steps, logits within {worst:.3g}; greedy tokens equal in "
         f"{n_equal} of {5 * len(batch['tokens'])} ({n_clear} with a top-2 "
         f"margin above 4e-2, all equal)")
 
 
+class DecodeTally:
+    """``quant.posit_decode`` (the route of every posit decode of a model
+    pass) wrapped, between ``start`` and ``stop``, to count its calls and
+    the bytes they read and write (every pattern read and every value
+    written once)."""
+
+    def __init__(self):
+        self.calls = self.bytes = 0
+        self._real = None
+
+    def start(self):
+        from repro_torch.core import quant
+        self._real = quant.posit_decode
+        quant.posit_decode = self._counted
+
+    def stop(self):
+        from repro_torch.core import quant
+        if self._real is not None:
+            quant.posit_decode, self._real = self._real, None
+
+    def _counted(self, bits, fmt, out_dtype=None):
+        import torch
+        out_dtype = torch.float32 if out_dtype is None else out_dtype
+        self.bytes += bits.numel() * (bits.element_size()
+                                      + torch.finfo(out_dtype).bits // 8)
+        self.calls += 1
+        return self._real(bits, fmt, out_dtype)
+
+
+def log_decode_window(events, tally, lane_steps, card):
+    """Every posit decode of a profiled window of ``lane_steps`` lane-steps
+    (``tally``: its launches and the bytes they read and write) beside its
+    byte bound, the device time from ``per_launch_ms``."""
+    ms, n = per_launch_ms(events, "posit_decode_kernel", tally.calls)
+    if not (lane_steps and n and tally.calls) or math.isnan(ms):
+        log("  every posit decode in that window: not measured (no "
+            "lane-step or no device time recorded)")
+        return
+    ms /= lane_steps
+    per_step = tally.bytes / lane_steps
+    bound = per_step / HBM_BYTES_PER_S * 1e3
+    log(f"  every posit decode in that window: {tally.calls / lane_steps:g}"
+        f" launches a lane-step ({n} of {tally.calls} recorded), "
+        f"{ms:.3f} ms on the device per lane-step against a byte bound of "
+        f"{bound:.3f} ms ({per_step / 1e9:.2f} GB read and written; "
+        f"{ms / bound * 100:.1f} % of it) ({card})")
+
+
 def profile_serve(dev, model, params, reqs, want, card):
     """A second engine with the same seed and requests: every greedy token
     reproduced, and the device's busy share under ``torch.profiler`` over
-    a steady window of engine steps (all slots decoding), with the weight
-    decode's device time per lane-step beside its byte bound (every
-    decoded value read and written once)."""
+    a steady window of engine steps (all slots decoding), with every posit
+    decode's device time per lane-step beside its byte bound
+    (``log_decode_window``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import quant
     engine = serve_engine(model, params, dev)
     subs = submit_all(engine, reqs)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     step, wall = 0, 0.0
-    real = quant.posit_decode
-    decoded = {"bytes": 0, "calls": 0}
-
-    def counted(bits, fmt, out_dtype=torch.float32):
-        decoded["bytes"] += bits.numel() * (
-            bits.element_size() + (2 if out_dtype == torch.bfloat16 else 4))
-        decoded["calls"] += 1
-        return real(bits, fmt, out_dtype)
+    tally = DecodeTally()
 
     def lane_steps():     # the lanes' rows, not the "fleet" row's sum
         return sum(r["decode_steps"] for lane, r in
@@ -1717,7 +1891,7 @@ def profile_serve(dev, model, params, reqs, want, card):
             if step == PROFILE_STEPS[0]:
                 torch.cuda.synchronize()
                 steps0 = lane_steps()
-                quant.posit_decode = counted
+                tally.start()
                 prof.start()
                 t0 = time.perf_counter()
             engine.step()
@@ -1725,11 +1899,11 @@ def profile_serve(dev, model, params, reqs, want, card):
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 prof.stop()
-                quant.posit_decode = real
+                tally.stop()
                 n_lane = lane_steps() - steps0
             step += 1
     finally:
-        quant.posit_decode = real
+        tally.stop()
     got = {c.rid: c.tokens for c in engine.scheduler.pop_completions()}
     n_greedy = 0
     for rid, (r, _) in subs.items():
@@ -1756,18 +1930,7 @@ def profile_serve(dev, model, params, reqs, want, card):
     else:
         log("  device kernels per lane-step: not measured (no lane-step or "
             "no device event recorded)")
-    dec_us = sum(e.self_device_time_total for e in on_card
-                 if "posit_decode_kernel" in e.key)
-    if n_lane and dec_us:
-        log(f"  weight decode in that window: {decoded['calls']} launches, "
-            f"{dec_us / 1e3:.3f} ms on the device over {n_lane} lane-steps,"
-            f" {dec_us / 1e3 / n_lane:.3f} ms per lane-step against a byte "
-            f"bound of {decoded['bytes'] / n_lane / HBM_BYTES_PER_S * 1e3:.3f}"
-            f" ms ({decoded['bytes'] / n_lane / 1e9:.2f} GB per lane-step) "
-            f"({card})")
-    else:
-        log("  weight decode in that window: not measured (no lane-step or "
-            "no device time recorded)")
+    log_decode_window(events, tally, n_lane, card)
 
 
 def serve_kv_route_ab(dev, model, params, reqs, want, card):
@@ -1963,7 +2126,8 @@ def expert_decode_per_lane_step(cfg, params, card):
             wval(leaf)
     n = len(leaves)
     ms = cuda_ms(lane_step, reps=1, samples=11)
-    dev_ms = device_ms(lane_step, "posit_decode_kernel", reps=10)
+    dev_ms = device_ms(lane_step, "posit_decode_kernel", reps=10,
+                       launches=n)
     nbytes = sum(leaf.bits.numel() * (leaf.bits.element_size() + 2)
                  for leaf in leaves)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2183,16 +2347,8 @@ def api_generate(model, params, batch, capacity, counters, prof=None):
     seconds, the launches of the prefill and of the decode steps, the
     profiled window's wall and decodes, and the final decode state."""
     import torch
-    from repro_torch.core import quant
     vocab = model.cfg.vocab
-    real = quant.posit_decode
-    decoded = dict(bytes=0, calls=0)
-
-    def counted(bits, fmt, out_dtype=torch.float32):
-        decoded["bytes"] += bits.numel() * (
-            bits.element_size() + (2 if out_dtype == torch.bfloat16 else 4))
-        decoded["calls"] += 1
-        return real(bits, fmt, out_dtype)
+    tally = DecodeTally()
 
     def counts():
         return {c.__name__: c.launches for c in counters}
@@ -2210,7 +2366,7 @@ def api_generate(model, params, batch, capacity, counters, prof=None):
     try:
         for s in range(API_STEPS):
             if prof is not None and s == API_PROFILE[0]:
-                quant.posit_decode = counted
+                tally.start()
                 prof.start()
                 tw = time.perf_counter()
             t0 = time.perf_counter()
@@ -2221,11 +2377,11 @@ def api_generate(model, params, batch, capacity, counters, prof=None):
             if prof is not None and s == API_PROFILE[1] - 1:
                 out["window_s"] = time.perf_counter() - tw
                 prof.stop()
-                quant.posit_decode = real
+                tally.stop()
     finally:
-        quant.posit_decode = real
+        tally.stop()
     out.update(tokens=torch.stack(toks, 1), decode=counts(), state=state,
-               decoded=decoded)
+               decoded=tally)
     return out
 
 
@@ -2389,7 +2545,7 @@ def run_model_api(dev, arch, counters, card):
         if on_card:
             log(f"  device kernels (kernels, copies, fills) per lane-step: "
                 f"{sum(e.count for e in on_card) / n_prof:.1f} ({card})")
-        log_decode_window(on_card, again["decoded"], n_prof, card)
+        log_decode_window(events, again["decoded"], n_prof, card)
         if cfg.family == "encdec":
             leaves = [t for pair in again["state"][1] for t in pair]
             nbytes = sum(t.bits.numel() * (t.bits.element_size() + 4)
@@ -2415,29 +2571,6 @@ def run_model_api(dev, arch, counters, card):
     gc.collect()
     torch.cuda.empty_cache()
     serve_reduced_on_card_and_cpu(dev, arch)
-
-
-def log_decode_window(on_card, decoded, steps, card):
-    """Every posit decode of a profiled window of ``steps`` decode steps
-    (``api_generate``'s ``decoded``: its launches and the bytes they read
-    and write) beside its byte bound: the device time per launch of the
-    decode kernels the profiler recorded, times the launches (the profiler
-    may drop a window's first events)."""
-    hits = [e for e in on_card if "posit_decode_kernel" in e.key]
-    us, n = (sum(e.self_device_time_total for e in hits),
-             sum(e.count for e in hits))
-    if not (us and n and decoded["calls"]):
-        log("  every posit decode in that window: not measured (no device "
-            "time recorded)")
-        return
-    ms = us / n * decoded["calls"] / steps / 1e3
-    per_step = decoded["bytes"] / steps
-    bound = per_step / HBM_BYTES_PER_S * 1e3
-    log(f"  every posit decode in that window: {decoded['calls'] / steps:g}"
-        f" launches a lane-step ({n} of {decoded['calls']} recorded), "
-        f"{ms:.3f} ms on the device per lane-step against a byte bound of "
-        f"{bound:.3f} ms ({per_step / 1e9:.2f} GB read and written; "
-        f"{ms / bound * 100:.1f} % of it) ({card})")
 
 
 def slstm_prefill_loop(cfg, params, dev, card):
@@ -2477,8 +2610,8 @@ def slstm_prefill_loop(cfg, params, dev, card):
 def shared_block_decode(cfg, params, card):
     """The hybrid's shared block decodes its seven posit16 weights at each
     of its calls, one a group: the time of one call's decodes (CUDA events
-    around ten calls back to back, none kept; and the device time per
-    launch the profiler records, times the launches), and of a pass's,
+    around ten calls back to back, none kept; and its device time,
+    ``device_ms`` with the call's launches), and of a pass's,
     beside their byte bound (every pattern read and every bf16 value
     written once); all but one call's are the same values decoded
     again."""
@@ -2492,14 +2625,15 @@ def shared_block_decode(cfg, params, card):
             wval(leaf)
     groups = cfg.n_layers // cfg.shared_attn_every
     ms = cuda_ms(block, reps=10, samples=5)
-    dev_ms, n = launch_ms(block, "posit_decode_kernel", len(leaves))
+    dev_ms = device_ms(block, "posit_decode_kernel", reps=10,
+                       launches=len(leaves))
     nbytes = sum(leaf.bits.numel() * (leaf.bits.element_size() + 2)
                  for leaf in leaves)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"  shared block's weight decode: {len(leaves)} launches a call, "
         f"{ms:.3f} ms a call (CUDA events), {dev_ms:.3f} ms of it on the "
-        f"device ({n} of {10 * len(leaves)} launches recorded), against a byte bound of {bound:.3f} ms ({nbytes / 1e9:.2f}"
-        f" GB); {groups} calls a pass: {groups * ms:.3f} ms a lane-step, "
+        f"device, against a byte bound of {bound:.3f} ms "
+        f"({nbytes / 1e9:.2f} GB); {groups} calls a pass: {groups * ms:.3f} ms a lane-step, "
         f"{(groups - 1) * ms:.3f} ms of it decoding the same values again "
         f"({card})")
 
@@ -2640,7 +2774,10 @@ def recurrent_decode_rows(dev):
     the shared block's three shapes, the unembedding) and xlstm-1.3b (the
     mLSTM's four shapes, the sLSTM's ``w_x``, ``w_h`` and ``w_out``, the
     unembedding), on random patterns; the plain version timed at the
-    largest layer weight of each."""
+    largest layer weight of each.  As on the path, where every weight is
+    read from device memory, each shape is decoded from distinct buffers
+    back to back, none kept, enough of them that their bits fill
+    ``COLD_BYTES`` (a small weight would otherwise be read from the L2)."""
     import torch
     from repro_torch.core.formats import get_format
     from repro_torch.kernels.posit_codec import (posit_decode,
@@ -2662,23 +2799,32 @@ def recurrent_decode_rows(dev):
             (SSM_ARCH, (4, 512, 2048), f32, False),
             (SSM_ARCH, (2048, 2048), bf16, False),
             (SSM_ARCH, (50304, 2048), bf16, False)):
-        b = torch.randint(-(1 << 15), 1 << 15, shape, device=dev,
-                          dtype=torch.int32).to(torch.int16)
+        n = -(-COLD_BYTES // (2 * math.prod(shape)))
+        bufs = [torch.randint(-(1 << 15), 1 << 15, shape, device=dev,
+                              dtype=torch.int32).to(torch.int16)
+                for _ in range(n)]
         out_size = 2 if out_dtype == bf16 else 4
+
+        def cold():
+            for b in bufs:
+                posit_decode(b, fmt, out_dtype)
         plain_ms = None
         if plain:
-            plain_ms = cuda_ms(lambda: posit_decode_torch(b, fmt, out_dtype),
-                               reps=2, samples=5)
+            plain_ms = cuda_ms(
+                lambda: posit_decode_torch(bufs[0], fmt, out_dtype),
+                reps=2, samples=5)
         rows.append(dict(
             name="posit_decode",
-            shape=[*shape, f"int16->{str(out_dtype)[6:]}", arch],
-            ms=cuda_ms(lambda: posit_decode(b, fmt, out_dtype)),
-            device_ms=device_ms(lambda: posit_decode(b, fmt, out_dtype),
-                                "posit_decode_kernel"),
+            shape=[*shape, f"int16->{str(out_dtype)[6:]}", arch,
+                   f"{n} buffers"],
+            ms=cuda_ms(cold, reps=max(1, 10 // n)) / n,
+            device_ms=device_ms(cold, "posit_decode_kernel",
+                                reps=max(2, 50 // n), launches=n) / n,
             plain_ms=plain_ms,
-            bound_ms=b.numel() * (2 + out_size) / HBM_BYTES_PER_S * 1e3,
+            bound_ms=bufs[0].numel() * (2 + out_size) / HBM_BYTES_PER_S
+            * 1e3,
             bound_by="bytes", library_ms=None))
-        del b
+        del bufs
     return rows
 
 
