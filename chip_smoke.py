@@ -12,8 +12,10 @@ Phases, each fatal on failure:
   2. each kernel against its plain torch version on the card: the round,
      the butterfly, the codec's decode, encode and KV append bitwise (the
      append in its three modes, positions it does not write untouched),
-     the rounded matmul within one format ulp and the same bits on a
-     second call (the main path's four shapes, ragged ones, f64), the
+     the rounded matmul bitwise (its plain version sums in the kernel's
+     order) and the same bits on a second call (the main path's four
+     shapes, ragged ones, f64), a slab of 1, 2, 4 or 6 rows bitwise the
+     same rows of 64 at the four shapes, the
      posit-KV attention within rtol = atol = 2e-5; the round and the
      decode also on views at every element offset within 16 bytes and
      ragged lengths (every decode container, both output types), the
@@ -46,7 +48,9 @@ Phases, each fatal on failure:
      decode at every serve weight shape, the round at the fleet's two
      shapes beside an empty kernel's bare launch, with the host time of
      each step of its wrapper; the rounded matmul at its four main-path
-     shapes beside an empty kernel's device time; the KV append at the
+     shapes beside an empty kernel's device time and beside the same
+     kernel on the M-dependent plan it replaced (``earlier_matmul_round``);
+     the KV append at the
      serve shape (posit8 and posit16) beside the earlier route it replaced
      (``earlier_kv_append``: casts, two encode launches and the eager
      scatter), each with its device kernels per call; the FFT stage range
@@ -146,7 +150,23 @@ Phases, each fatal on failure:
      worker's launches of the round, the FFT stage range and the rounded
      matmul above zero and no plain version called on a CUDA tensor
      there; windows/s of the pool and in process, and the card memory
-     each worker holds.
+     each worker holds; then (8c) the same fleet through workers whose
+     dispatch is sharded over 2 data slabs of the card (``devices=2``),
+     ledger and digests equal to the in-process run;
+  9. distributed and durability: (a) phase 3's fleet at cap 30 on one
+     card engine and on one sharded over 4 data slabs of the card
+     (``split_mesh_info``), every output and peak bitwise equal, the
+     ledger's windows and nJ exact, the stream launches as predicted, no
+     plain version on a CUDA tensor, windows/s of each; (b) qwen3-8b's
+     layer-0 weights at full width (0.77 GB f32 on the card), an int32
+     step and a 1-D leaf saved async twice by a posit16
+     ``CheckpointManager`` (``keep=1``) and restored on the card: every
+     2-D leaf bitwise B5's decode(encode(x)), 7 encodes a save and 7
+     decodes a restore, the times beside their byte bounds; (c) the same
+     leaves through ``posit_all_reduce`` and ``posit_all_reduce_ef`` at
+     world size 1 on NCCL (an in-process ``HashStore``): bitwise
+     decode(encode(x)), the EF residual exact, 2 encodes and 2 decodes a
+     call (3 and 3 with EF).
 
 Phase 2 also holds the multiply-add bitwise and the decode-fused matmul
 within 1e-5 of its largest output against their plain versions (at the
@@ -229,6 +249,33 @@ ENCDEC_BOS = 16                # phase 5d: BOS tokens primed at prefill
 API_STEPS = 32                 # phases 5c-5f: greedy decode steps a lane
 API_PROFILE = (8, 24)          # decode steps profiled in the second run
 POOL_WORKERS = 2               # phase 8
+POOL_SLABS = 2                 # phase 8c: data slabs of the card a worker
+SHARD_SLABS = 4                # phase 9a: data slabs of the card
+SHARD_MAX_BATCH = 30           # phase 9a: fleet_pad(30, 4) = 32 rows
+# phase 9a: the fleet's stream launches on one card engine at cap 30
+# (cough posit16 96 windows and ECG posit10 96 in 3 batches of 30 and one
+# of 6 each, ECG posit8 32 in 30 + 2; fp16 launches none), from phase 3's
+# counts: the window functions round 404 times over the fleet's 10 posit
+# batches at cap 30 and 285 over its 7 at cap 32, the trackers 7936 times
+# at either cap (a CPU rehearsal under the kernel backend, counting the
+# round's calls with phase 2's plan caches built); the sharded engine runs
+# each batch's window functions once a slab, and a slab's 16 FFTs take the
+# stage range in two passes where a batch's 60 take one (fft_pass_plan
+# cuts a pass that would leave SMs idle)
+SHARD_BATCH_ROUNDS = 404
+SHARD_PLAIN_LAUNCHES = {
+    "posit_round": FLEET_ROUND_LAUNCHES + SHARD_BATCH_ROUNDS - 285,
+    "posit_fft_stages": 4, "posit_matmul_round": 16}
+SHARD_LAUNCHES = {
+    "posit_round": SHARD_PLAIN_LAUNCHES["posit_round"]
+    + (SHARD_SLABS - 1) * SHARD_BATCH_ROUNDS,
+    "posit_fft_stages": SHARD_SLABS * 4 * 2,
+    "posit_matmul_round": SHARD_SLABS * 16}
+# phase 9b: qwen3-8b's layer-0 weights at full width, f32 on the card
+CKPT_LEAVES = (("wq", (4096, 4096)), ("wk", (4096, 1024)),
+               ("wv", (4096, 1024)), ("wo", (4096, 4096)),
+               ("w_gate", (4096, 12288)), ("w_up", (4096, 12288)),
+               ("w_down", (12288, 4096)))
 POOL_REALTIME = 8.0            # phase 8a: the drive lasts 0.5 s, so the kill
                                # 0.4 s after the worker's ready lands in it
 POOL_STALL_S = 10.0            # phase 8: no patient stalls; the timeout only
@@ -578,7 +625,9 @@ def check_kernels(dev, report):
         log(f"  posit_butterfly stage {stage} plane {shape}: bitwise")
     report["posit_butterfly"]["max_abs_err"] = err
 
-    # posit_matmul_round: the main path's shapes, within one format ulp
+    # posit_matmul_round: the main path's shapes, bitwise (its plain
+    # version sums in the kernel's order), and a slab's rows equal to the
+    # same rows of the whole batch
     rows = MAX_BATCH * 2
     mel = _mel_filterbank(FFT_N // 2 + 1, AUDIO_SR, 20, fmt.name,
                           torch.float32, str(dev)).T.contiguous()
@@ -603,30 +652,68 @@ def check_kernels(dev, report):
                     posit_round_torch(torch.randn(700, 5, generator=gen)
                                       .to(dev), fmt))),
         ("mel f64", (psd.double(), mel.double()))]
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     err = 0.0
     for name, (a, b) in cases:
         k = posit_matmul_round(a, b, fmt)
         again = posit_matmul_round(a, b, fmt)
         p = posit_matmul_round_torch(a, b, fmt)
         torch.cuda.synchronize()
-        dist = ulp_distance(k, p, fmt)
-        if int(dist.max()) > 1:
-            raise AssertionError(f"posit_matmul_round {name}: "
-                                 f"{int(dist.max())} ulp from the plain "
-                                 f"version")
+        if not bits_equal(k, p):
+            raise AssertionError(f"posit_matmul_round {name}: not bitwise "
+                                 f"equal to its plain version (at most "
+                                 f"{int(ulp_distance(k, p, fmt).max())} "
+                                 f"ulp apart)")
         if not bits_equal(k, again):
             raise AssertionError(f"posit_matmul_round {name}: two calls "
                                  f"gave different bits")
-        share = float((dist != 0).float().mean())
         err = max(err, max_abs_err(k, p))
         (M, K), N = a.shape, b.shape[1]
         log(f"  posit_matmul_round {name} {str(a.dtype)[6:]} ({M}, {K})x"
             f"({K}, {N}), plan (tm, tn, splits, k per split) "
-            f"{round_matmul_plan(M, K, N, sms)}: within 1 ulp, {share:.4f} "
-            f"of outputs not bitwise equal, the same bits on a second call")
+            f"{round_matmul_plan(K, N)}: bitwise, the same bits on a "
+            f"second call")
+    for name, (a, b) in shapes.items():
+        a = torch.cat([a, a])[:rows] if a.shape[0] < rows else a
+        whole = posit_matmul_round(a, b, fmt)
+        for m in (1, 2, 4, 6):
+            if not bits_equal(posit_matmul_round(a[:m].contiguous(), b, fmt),
+                              whole[:m]):
+                raise AssertionError(f"posit_matmul_round {name}: a slab of "
+                                     f"{m} rows differs from the same rows "
+                                     f"of {rows}")
+    log(f"  posit_matmul_round: slabs of 1, 2, 4, 6 rows bitwise equal to "
+        f"the same rows of {rows} at mel, DCT, centroid and votes")
     report["posit_matmul_round"]["max_abs_err"] = err
     return shapes
+
+
+def earlier_matmul_round(a, b, fmt):
+    """``posit_matmul_round`` as it ran before its split over K became a
+    function of K and N alone: the same kernel, launched with the earlier
+    plan, which counted the output tiles of all M rows against the card's
+    SMs (so a row's sum order, and its bits, followed M).  Timed beside
+    the kernel's plan, in one run, on one card."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import posit_matmul as pm
+    (M, K), N = a.shape, b.shape[1]
+    tn = min(8, 1 << max(0, N - 1).bit_length())
+    tiles = -(-M // (pm.ROUND_ACC // tn)) * -(-N // tn)
+    chunks = max(1, -(-K // pm.ROUND_THREADS))
+    want = max(1, min(-(-build.sm_count(a.device.index) // tiles), chunks,
+                      16))
+    per = -(-chunks // want) * pm.ROUND_THREADS
+    splits = max(1, -(-K // per))
+    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    part = (torch.empty((splits, M, N), dtype=a.dtype, device=a.device)
+            if splits > 1 else None)
+    rc = pm._kernels().posit_matmul_round_f32(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(),
+        part.data_ptr() if part is not None else None, M, K, N, tn, splits,
+        per, fmt.n, fmt.es, torch.cuda.current_stream(a.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"earlier_matmul_round: cudaError {rc}")
+    return out
 
 
 def earlier_fft_stages(z, twiddles, s0, s1, fmt):
@@ -1209,14 +1296,17 @@ def build_fleet(rng):
     return queues, pins, records
 
 
-def run_main_path(dev, forest, counters):
+def run_main_path(dev, forest, counters, **engine_kw):
+    """The fleet through one ``StreamEngine`` (``engine_kw`` beside the
+    default ``max_batch=MAX_BATCH``); the counters set to 0 just before."""
     import numpy as np
     from repro_torch.stream import StreamEngine, cough_pipeline, rpeak_pipeline
     rng = np.random.default_rng(SEED)
     queues, pins, records = build_fleet(rng)
     engine = StreamEngine({"cough": cough_pipeline(forest),
                            "rpeak": rpeak_pipeline()},
-                          max_batch=MAX_BATCH, device=dev)
+                          **{"max_batch": MAX_BATCH, "device": dev,
+                             **engine_kw})
     for pid, (task, fmt) in pins.items():
         engine.register_patient(pid, task, fmt=fmt)
     for c in counters:
@@ -3011,7 +3101,13 @@ def time_kernels(dev, shapes, report):
             bound_by="bytes" if by_bytes else "operations",
             library_ms=cuda_ms(lambda: posit_round_torch(torch.matmul(a, b),
                                                          fmt)),
-            floor_device_ms=floor_dev)
+            floor_device_ms=floor_dev,
+            earlier_plan_ms=cuda_ms(lambda: earlier_matmul_round(a, b,
+                                                                 fmt)),
+            earlier_plan_device_ms=device_ms(
+                lambda: earlier_matmul_round(a, b, fmt),
+                ("posit_matmul_round_kernel",
+                 "posit_matmul_round_combine_kernel")))
         if name == "mel":
             report["posit_matmul_round"].update(row)
         else:
@@ -3848,50 +3944,293 @@ def run_pool(dev, forest, card):
     log(f"  chaos pool memory: {mem.describe(POOL_WORKERS)} ({card})")
     shutil.rmtree(spill, ignore_errors=True)
 
-    # (b) the mixed fleet, fault-free
+    # (b) the mixed fleet, fault-free; (c) the same through workers whose
+    # dispatch is sharded over POOL_SLABS data slabs of the card
     sim = FleetSimulator(n_patients=N_PATIENTS, windows=INGEST_WINDOWS,
                          seed=SEED, mixed=True)
     summary, want, wall_in = pool_reference(
         sim, {"cough": cough_pipeline(forest), "rpeak": rpeak_pipeline()},
         dev)
-    with CardMemory() as mem:
-        doc = run_worker_fleet(sim, POOL_WORKERS, max_batch=INGEST_MAX_BATCH,
-                               stall_timeout_s=POOL_STALL_S)
+    for devices, what in ((0, "mixed pool"),
+                          (POOL_SLABS, f"mixed pool, devices={POOL_SLABS}")):
+        with CardMemory() as mem:
+            doc = run_worker_fleet(sim, POOL_WORKERS,
+                                   max_batch=INGEST_MAX_BATCH,
+                                   stall_timeout_s=POOL_STALL_S,
+                                   devices=devices)
+        check_pool_fleet(doc, summary, want, what)
+        slabs = [w["devices"] for w in doc["workers"]]
+        if slabs != [max(devices, 1)] * POOL_WORKERS:
+            raise AssertionError(f"{what}: workers report {slabs} data "
+                                 f"slabs")
+        n = summary["fleet"]["windows"]
+        log(f"  {what}: {n} windows through {POOL_WORKERS} workers "
+            f"({slabs} data slabs each), every digest and the ledger's "
+            f"windows and total nJ ({summary['fleet']['total_nj']!r}) equal "
+            f"to the in-process card run; {n / doc['wall_s']:.1f} windows/s "
+            f"over the pool ({doc['wall_s']:.3f} s from every worker's "
+            f"ready), {n / wall_in:.1f} windows/s in process "
+            f"({wall_in:.3f} s) (host clock, {card})")
+        for w in doc["workers"]:
+            stream = {k: w["kernel_calls"][k]
+                      for k in ("posit_round", "posit_fft_stages",
+                                "posit_matmul_round", "posit_butterfly")}
+            log(f"  worker {w['worker_id']}: {w['windows']} windows, "
+                f"launches {stream}, no plain version on a CUDA tensor "
+                f"(refused there)")
+        log(f"  {what} memory: {mem.describe(POOL_WORKERS)} ({card})")
+
+
+def check_pool_fleet(doc, summary, want, what):
+    """A fault-free pool run against the in-process card run: no failed
+    worker, the ledger's windows and nJ per group, every digest, and each
+    worker's stream launches."""
     if doc["failed_workers"]:
-        raise AssertionError(f"mixed pool: {doc['failed_workers']}")
+        raise AssertionError(f"{what}: {doc['failed_workers']}")
     groups = doc["groups"]
     if set(groups) != set(summary):
-        raise AssertionError(f"mixed pool groups {sorted(groups)}, in "
-                             f"process {sorted(summary)}")
+        raise AssertionError(f"{what} groups {sorted(groups)}, in process "
+                             f"{sorted(summary)}")
     for key, row in summary.items():
         g = groups[key]
         if g["windows"] != row["windows"] or \
                 abs(g["total_nj"] - row["total_nj"]) > 1e-12 * abs(
                     row["total_nj"]):
-            raise AssertionError(f"mixed pool {key}: {g['windows']} windows "
+            raise AssertionError(f"{what} {key}: {g['windows']} windows "
                                  f"{g['total_nj']!r} nJ, in process "
                                  f"{row['windows']} {row['total_nj']!r}")
     bad = [p for p, d in want.items() if doc["digests"].get(p) != d]
     if bad or set(doc["digests"]) != set(want):
-        raise AssertionError(f"mixed pool: digests differ from the "
-                             f"in-process card run for {bad}")
+        raise AssertionError(f"{what}: digests differ from the in-process "
+                             f"card run for {bad}")
     check_pool_kernel_calls(doc, ("posit_round", "posit_fft_stages",
-                                  "posit_matmul_round"), "mixed pool")
-    n = summary["fleet"]["windows"]
-    log(f"  mixed pool: {n} windows through {POOL_WORKERS} workers, every "
-        f"digest and the ledger's windows and total nJ "
-        f"({summary['fleet']['total_nj']!r}) equal to the in-process card "
-        f"run; {n / doc['wall_s']:.1f} windows/s over the pool "
-        f"({doc['wall_s']:.3f} s from every worker's ready), "
-        f"{n / wall_in:.1f} windows/s in process ({wall_in:.3f} s) (host "
-        f"clock, {card})")
-    for w in doc["workers"]:
-        stream = {k: w["kernel_calls"][k]
-                  for k in ("posit_round", "posit_fft_stages",
-                            "posit_matmul_round", "posit_butterfly")}
-        log(f"  worker {w['worker_id']}: {w['windows']} windows, launches "
-            f"{stream}, no plain version on a CUDA tensor (refused there)")
-    log(f"  mixed pool memory: {mem.describe(POOL_WORKERS)} ({card})")
+                                  "posit_matmul_round"), what)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: distributed and durability
+# ---------------------------------------------------------------------------
+
+def run_sharded_fleet(dev, forest, counters, card):
+    """(a) Phase 3's fleet at cap 30, ``pad_policy="max"``, on one card
+    engine and on one sharded over ``SHARD_SLABS`` data slabs of the card
+    (``split_mesh_info``): every window's outputs and peaks bitwise equal,
+    the ledger's windows and nJ exact, ``padded_windows`` only growing,
+    the stream launches as predicted, no plain version on a CUDA tensor."""
+    import numpy as np
+    from repro_torch.kernels.counts import PlainCalls
+    from repro_torch.launch.mesh import split_mesh_info
+    names = ("posit_round", "posit_fft_stages", "posit_matmul_round")
+    runs = {}
+    for name, kw in (("plain", {}), ("sharded", {
+            "mesh_info": split_mesh_info(dev, SHARD_SLABS)})):
+        with PlainCalls() as plain:
+            engine, _, _, wall, launches = run_main_path(
+                dev, forest, counters, max_batch=SHARD_MAX_BATCH,
+                pad_policy="max", **kw)
+        if any(plain.calls.values()):
+            raise AssertionError(f"{name} fleet: plain versions called on "
+                                 f"the card: {plain.calls}")
+        launches = {k: launches[k] for k in names}
+        want = SHARD_PLAIN_LAUNCHES if name == "plain" else SHARD_LAUNCHES
+        if launches != want:
+            raise AssertionError(f"{name} fleet launched {launches}, "
+                                 f"predicted {want}")
+        runs[name] = (engine, wall, launches)
+    (pe, pw, pl), (se, sw, sl) = runs["plain"], runs["sharded"]
+    if se.dp_size != SHARD_SLABS:
+        raise AssertionError(f"sharded engine has {se.dp_size} slabs")
+    key = lambda r: (r.patient, r.task, r.widx)  # noqa: E731
+    rp = sorted(pe.pop_results(), key=key)
+    rs = sorted(se.pop_results(), key=key)
+    ids = [(r.patient, r.task, r.widx, r.fmt) for r in rp]
+    if len(rp) != N_PATIENTS * N_WINDOWS or ids != [
+            (r.patient, r.task, r.widx, r.fmt) for r in rs]:
+        raise AssertionError("sharded fleet: windows or formats differ")
+    for a, b in zip(rp, rs):
+        for k in set(a.outputs) | set(b.outputs):
+            x, y = np.asarray(a.outputs.get(k)), np.asarray(b.outputs.get(k))
+            if x.dtype != y.dtype or x.shape != y.shape or \
+                    x.tobytes() != y.tobytes():
+                raise AssertionError(f"sharded fleet: {a.patient} window "
+                                     f"{a.widx} {k} not bitwise equal")
+    for pid, task in pe._trackers:
+        if pe.tracker_for(pid, task).peaks != se.tracker_for(pid,
+                                                             task).peaks:
+            raise AssertionError(f"sharded fleet: {pid}'s peaks differ")
+    sp, ss = pe.ledger.summary(), se.ledger.summary()
+    if set(sp) != set(ss) or any(
+            sp[k]["windows"] != ss[k]["windows"]
+            or sp[k]["total_nj"] != ss[k]["total_nj"] for k in sp):
+        raise AssertionError("sharded fleet: ledger windows or nJ differ")
+    pad = {f"{t}/{f}": (g.padded_windows,
+                        se.ledger.stats[(t, f)].padded_windows)
+           for (t, f), g in pe.ledger.stats.items()}
+    if any(b < a for a, b in pad.values()):
+        raise AssertionError(f"sharded fleet padded fewer rows: {pad}")
+    n = len(rp)
+    log(f"  sharded fleet: {n} windows over {SHARD_SLABS} data slabs of the "
+        f"card at cap {SHARD_MAX_BATCH} (pad_policy max, 32 rows a batch), "
+        f"every output and peak bitwise equal to one card engine's, ledger "
+        f"windows and nJ ({sp['fleet']['total_nj']!r}) exact, padded "
+        f"windows (plain, sharded) {pad}; no plain version on the card")
+    log(f"  launches: one engine {pl}, sharded {sl} (as predicted); "
+        f"{n / pw:.1f} windows/s on one engine ({pw:.3f} s), "
+        f"{n / sw:.1f} sharded ({sw:.3f} s) (host clock, {card})")
+
+
+def codec_launches(counters):
+    return {c.__name__: c.launches for c in counters
+            if c.__name__ in ("posit_encode", "posit_decode")}
+
+
+def run_checkpoint(dev, counters, card):
+    """(b) qwen3-8b's layer-0 weights at full width (f32 on the card), an
+    int32 step and a 1-D f32 leaf, saved async twice by a posit16
+    ``CheckpointManager`` with ``keep=1``, then restored on the card:
+    every 2-D leaf bitwise B5's decode(encode(x)), the others equal, one
+    encode a 2-D leaf a save and one decode a restore.  Returns the
+    state."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.counts import SERVE_PLAIN, PlainCalls
+    fmt = get_format("posit16")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    state = {name: torch.randn(shape, generator=gen, device=dev) * 0.02
+             for name, shape in CKPT_LEAVES}
+    n_vals = sum(v.numel() for v in state.values())
+    state["norm"] = torch.randn(4096, generator=gen, device=dev)
+    state["step"] = torch.tensor(7, dtype=torch.int32, device=dev)
+    n2d = len(CKPT_LEAVES)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt-")
+    try:
+        mgr = CheckpointManager(tmp, keep=1, quantize_fmt="posit16",
+                                async_save=True)
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        with PlainCalls(SERVE_PLAIN) as plain:
+            saves = []
+            for step in (1, 2):
+                t0 = time.perf_counter()
+                mgr.save(step, state)
+                t1 = time.perf_counter()
+                mgr.wait()
+                saves.append((t1 - t0, time.perf_counter() - t1))
+            saved = codec_launches(counters)
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            restored, step = mgr.restore(state)
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            loaded = codec_launches(counters)
+        if any(plain.calls.values()):
+            raise AssertionError(f"checkpoint: plain codec on the card: "
+                                 f"{plain.calls}")
+        if saved != {"posit_encode": 2 * n2d, "posit_decode": 0} or \
+                loaded != {"posit_encode": 0, "posit_decode": n2d}:
+            raise AssertionError(f"checkpoint launches: saves {saved}, "
+                                 f"restore {loaded}; predicted "
+                                 f"{2 * n2d} encodes, {n2d} decodes")
+        if step != 2 or mgr.all_steps() != [2]:
+            raise AssertionError(f"checkpoint: restored step {step}, kept "
+                                 f"{mgr.all_steps()}")
+        disk = os.path.getsize(os.path.join(tmp, "step-000000002",
+                                            "state.npz"))
+        for k, v in state.items():
+            want = ops.decode(ops.encode(v, fmt), fmt) if v.dim() >= 2 else v
+            got = restored[k]
+            same = (bits_equal(got, want) if v.dtype == torch.float32
+                    else torch.equal(got, want))
+            if got.device != v.device or got.dtype != v.dtype or not same:
+                raise AssertionError(f"checkpoint: leaf {k} not restored "
+                                     f"bitwise")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # on the card: 4 bytes read and 2 written a value by the encode, the
+    # reverse by the decode; the bits cross to and from the host once
+    dev_bound = 6 * n_vals / HBM_BYTES_PER_S * 1e3
+    log(f"  checkpoint: {n_vals} values (7 weights, {4 * n_vals / 1e9:.3f} "
+        f"GB f32) + step + norm, saved async twice with keep=1 "
+        f"({disk / 1e9:.3f} GB on disk), restored on the card: every 2-D "
+        f"leaf bitwise decode(encode(x)), the others equal; launches a "
+        f"save {saved['posit_encode'] // 2} encodes, a restore "
+        f"{loaded['posit_decode']} decodes (as predicted)")
+    log(f"  checkpoint times (host clock): save() returned in "
+        f"{[round(a * 1e3, 1) for a, _ in saves]} ms (encode on the card "
+        f"and the copy of {2 * n_vals / 1e9:.3f} GB of bits to the host; "
+        f"device byte bound of the encodes {dev_bound:.3f} ms), the writes "
+        f"{[round(b * 1e3, 1) for _, b in saves]} ms more, restore "
+        f"{t_restore * 1e3:.1f} ms (read, copy to the card, decode; device "
+        f"byte bound {dev_bound:.3f} ms) ({card})")
+    return state
+
+
+def run_all_reduce(dev, state, counters, card):
+    """(c) Phase 9b's f32 leaves as gradients through ``posit_all_reduce``
+    and ``posit_all_reduce_ef`` at world size 1 on NCCL (an in-process
+    ``HashStore``, no network): outputs bitwise decode(encode(x)), the EF
+    residual exactly x − q, 2 encodes and 2 decodes a call (3 and 3 for
+    EF)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.formats import get_format
+    from repro_torch.distributed.collectives import (posit_all_reduce,
+                                                     posit_all_reduce_ef)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.counts import SERVE_PLAIN, PlainCalls
+    fmt = get_format("posit16")
+    grads = [v for v in state.values() if v.dtype == torch.float32]
+    n_vals = sum(g.numel() for g in grads)
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        qs = [ops.decode(ops.encode(g, fmt), fmt) for g in grads]
+        posit_all_reduce(grads[-1], fmt)            # the communicator's init
+        torch.cuda.synchronize()
+        got = {}
+        with PlainCalls(SERVE_PLAIN) as plain:
+            for name in ("all-reduce", "EF all-reduce"):
+                for c in counters:
+                    c.launches = 0
+                t0 = time.perf_counter()
+                outs = ([posit_all_reduce(g, fmt) for g in grads]
+                        if name == "all-reduce" else
+                        [posit_all_reduce_ef(g, None, fmt) for g in grads])
+                torch.cuda.synchronize()
+                got[name] = (outs, time.perf_counter() - t0,
+                             codec_launches(counters))
+        if any(plain.calls.values()):
+            raise AssertionError(f"all-reduce: plain codec on the card: "
+                                 f"{plain.calls}")
+    finally:
+        dist.destroy_process_group()
+    n = len(grads)
+    for name, per in (("all-reduce", 2), ("EF all-reduce", 3)):
+        outs, wall, launches = got[name]
+        if launches != {"posit_encode": per * n, "posit_decode": per * n}:
+            raise AssertionError(f"{name}: launches {launches}, predicted "
+                                 f"{per * n} of each")
+        for g, q, o in zip(grads, qs, outs):
+            out, res = o if isinstance(o, tuple) else (o, None)
+            if not bits_equal(out, q):
+                raise AssertionError(f"{name}: not decode(encode(x))")
+            if res is not None and not bits_equal(res, g - q):
+                raise AssertionError(f"{name}: residual is not x - q")
+        exact = ", residual x - q exact" if per == 3 else ""
+        log(f"  {name}, world size 1 on NCCL: {n} leaves ({n_vals} values), "
+            f"bitwise decode(encode(x)){exact}, "
+            f"{per} encodes and {per} decodes a leaf (as predicted), "
+            f"{2 * 2 * n_vals / 1e9:.3f} GB of posit16 bytes handed to the "
+            f"two collectives; {wall * 1e3:.1f} ms for the tree (host clock, "
+            f"{card})")
 
 
 def main() -> int:
@@ -4047,6 +4386,10 @@ def main() -> int:
         if "floor_device_ms" in r:
             unfused += (f", an empty kernel {r['floor_device_ms']:.4f} ms on "
                         f"the device")
+        if "earlier_plan_ms" in r:
+            unfused += (f", the M-dependent plan it replaced "
+                        f"{r['earlier_plan_ms']:.4f} ms per call "
+                        f"({r['earlier_plan_device_ms']:.4f} on the device)")
         log(f"  {r['name']} {r['shape']}: {r['ms']:.4f} ms per call "
             f"({r['device_ms']:.4f} ms of it on the device), bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
@@ -4116,6 +4459,15 @@ def main() -> int:
     t0 = time.perf_counter()
     run_pool(dev, forest, card)
     log(f"  phase 8 in {time.perf_counter() - t0:.1f} s ({card})")
+
+    phase("phase 9: distributed and durability")
+    t0 = time.perf_counter()
+    run_sharded_fleet(dev, forest, counters, card)
+    state = run_checkpoint(dev, counters, card)
+    run_all_reduce(dev, state, counters, card)
+    del state
+    torch.cuda.empty_cache()
+    log(f"  phase 9 in {time.perf_counter() - t0:.1f} s ({card})")
     phase("done")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -32,7 +32,8 @@ from typing import Union
 
 import torch
 
-from repro_torch.kernels.posit_matmul import posit_matmul_round
+from repro_torch.kernels.posit_matmul import (posit_matmul_round,
+                                              round_matmul_sum)
 from repro_torch.kernels.posit_round import posit_fma_round, posit_round
 
 from .floatsim import round_to_float
@@ -303,8 +304,10 @@ class Arith:
         """Rounded matrix product ``a (..., K) · b (K, N) → (..., N)``.
 
         * posit: one wide product per output, rounded once — under the
-          kernel backend one ``posit_matmul_round`` launch; under quire
-          mode an exact compensated K-accumulation per output instead.
+          kernel backend one ``posit_matmul_round`` launch, otherwise
+          summed in that kernel's order, so a row's bits never depend on
+          how many rows the batch has; under quire mode an exact
+          compensated K-accumulation per output instead.
         * IEEE: a rounded product and a rounded add per MAC, sequentially
           along K.
         * fp32: the plain device matmul.
@@ -324,6 +327,9 @@ class Arith:
                 out = posit_matmul_round(a2.contiguous(), b.contiguous(),
                                          self.fmt)
                 return out.reshape(*batch, N)
+            if self.is_posit:
+                # the kernel's sum order: a row's bits do not depend on M
+                return self.rnd(round_matmul_sum(a2, b).reshape(*batch, N))
             return self.rnd((a2 @ b).reshape(*batch, N))
         prod = self.rnd(a[..., :, None] * b)            # (..., K, N)
         return self._ieee_accumulate(torch.movedim(prod, -2, 0), False)

@@ -1,30 +1,66 @@
-"""Fault tolerance: the restart policy, the supervised-restart loop and the
-step watchdog — the counterpart of ``repro.distributed.fault_tolerance``
-for one device.
+"""Fault tolerance and elasticity: the restart policy, the supervised
+restart loop, the step watchdog and the elastic re-mesh — the counterpart
+of ``repro.distributed.fault_tolerance``.
 
 ``RestartPolicy`` is the control logic both the ingest worker pool
 (``repro_torch.ingest.workers``) and ``run_with_restarts`` use: bounded
 restarts with exponential backoff.  ``StepWatchdog`` flags steps that
 overrun a deadline, synchronising the card before it reads the clock when
-the step's output lies there.
-
-The reference's ``remesh`` and ``largest_valid_mesh`` rebuild a device mesh
-after node loss; they wait for the distributed slice of the port
-(ROADMAP.md, queue A item A4).  ``ElasticConfig`` is kept only as far as
-``run_with_restarts`` reads it: its restart budget.
+the step's output lies there.  ``largest_valid_mesh`` and ``remesh``
+rebuild a ``(data, model)`` mesh from the devices that survive a loss.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.core.device import resolve_device
+
+from .sharding import MeshInfo
 
 
 @dataclasses.dataclass
 class ElasticConfig:
+    model_parallel: int = 16         # fixed TP degree (the model must fit)
+    min_data_parallel: int = 1
+    step_deadline_s: float = 600.0   # straggler: give up on the step
     max_restarts: int = 20
+
+
+def largest_valid_mesh(n_devices: int, cfg: ElasticConfig
+                       ) -> Tuple[int, int]:
+    """(data, model) for the biggest usable mesh after losing devices.
+
+    The TP degree is fixed (parameter shards must fit); the data axis
+    shrinks to the largest multiple the surviving devices support.  The
+    global batch stays fixed: per-device microbatching absorbs the
+    difference."""
+    tp = cfg.model_parallel
+    dp = max(n_devices // tp, cfg.min_data_parallel)
+    if n_devices < tp:
+        raise RuntimeError(
+            f"{n_devices} devices cannot hold a {tp}-way model-parallel "
+            "shard set; restore on fewer model shards requires re-sharding "
+            "the checkpoint (offline, through checkpoint.CheckpointManager)")
+    return dp, tp
+
+
+def remesh(devices: Optional[Sequence] = None,
+           cfg: ElasticConfig = ElasticConfig()) -> MeshInfo:
+    """The largest valid ``("data", "model")`` mesh over ``devices`` (any
+    ``torch.device`` or device strings; default: every visible card — on a
+    box without CUDA this raises, so name the CPU there)."""
+    if devices is None:
+        resolve_device(None)
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    dp, tp = largest_valid_mesh(len(devices), cfg)
+    return MeshInfo(tuple(devices[:dp * tp]), ("data", "model"), (dp, tp),
+                    dp_axes=("data",))
 
 
 def _on_card(out) -> bool:

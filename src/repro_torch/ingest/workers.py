@@ -46,20 +46,21 @@ context of its own on the one card.  A worker that cannot reach the card
 fails (and is surfaced in ``failed_workers``); it never runs on the CPU
 instead.  ``run_worker_fleet`` builds the CUDA kernels in the parent before
 it spawns, so the workers load the built libraries instead of each running
-``nvcc`` inside their start timeout.  The reference's ``devices > 1``
-shards each worker's dispatch over a device mesh; that waits for the
-port's distributed slice (ROADMAP.md, queue A item A4) and raises here.
+``nvcc`` inside their start timeout.  ``devices = n > 1`` shards each
+worker's dispatch over ``n`` data slabs of its device
+(``launch.mesh.split_mesh_info``), as the reference's worker shards it over
+a forced ``n``-way host device split.
 
 Determinism: a worker builds its pipelines from the same seeds as the
 parent (the reference forest is retrained per process on the worker's
 device, bit-identically), so the windows a worker scores match what the
-single-process engine would have produced for the same patients — with
-``pad_policy="max"``, every batch of a (task, format) has one shape, and the
-rounded matmul's split over K, which follows the shape, is the same in
-every process.  Each worker ships a per-patient sha256 ``digest`` over its
-delivered results so a chaos run can assert bit-identity and exactly-once
-against the fault-free run, and its process's kernel launch counts
-(``kernel_calls``) so a run can show its workers went through the kernels.
+single-process engine would have produced for the same patients: the
+window functions are row-independent, and the rounded matmul's split over
+K follows K and N alone, so a row's bits do not depend on its batch.  Each
+worker ships a per-patient sha256 ``digest`` over its delivered results so
+a chaos run can assert bit-identity and exactly-once against the
+fault-free run, and its process's kernel launch counts (``kernel_calls``)
+so a run can show its workers went through the kernels.
 """
 from __future__ import annotations
 
@@ -78,6 +79,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.distributed.fault_tolerance import RestartPolicy
+from repro_torch.launch.mesh import split_mesh_info
 
 from .simulator import ChaosPlan, FleetSimulator, PatientPlan
 
@@ -93,7 +95,7 @@ class WorkerConfig:
     tasks: Tuple[str, ...]              # pipelines to build
     pins: Tuple[Tuple[str, str], ...]   # (patient, fmt) router pins
     n_patients: int = 0                 # sessions to expect before draining
-    devices: int = 0                    # 0 or 1: one device (> 1: A4)
+    devices: int = 0                    # > 1: data slabs of the device
     max_batch: int = 32
     pad_policy: str = "max"
     stall_timeout_s: float = 1.5
@@ -114,19 +116,10 @@ class WorkerConfig:
     device: Optional[str] = None        # the engine's device (None: card)
 
 
-def _check_devices(devices: int) -> None:
-    if devices > 1:
-        raise NotImplementedError(
-            f"devices={devices}: a worker's dispatch sharded over a device "
-            f"mesh (the reference's make_fleet_mesh_info) is not ported "
-            f"yet (ROADMAP.md, queue A item A4)")
-
-
 def _build_engine(cfg: WorkerConfig):
     from repro_torch.stream import (PrecisionRouter, StreamEngine,
                                     cough_pipeline, rpeak_pipeline)
 
-    _check_devices(cfg.devices)
     device = resolve_device(cfg.device)
     pipelines = {}
     if "cough" in cfg.tasks:
@@ -139,7 +132,9 @@ def _build_engine(cfg: WorkerConfig):
     return StreamEngine(
         pipelines,
         router=PrecisionRouter(patient_formats=dict(cfg.pins)),
-        max_batch=cfg.max_batch, pad_policy=cfg.pad_policy, device=device)
+        max_batch=cfg.max_batch, pad_policy=cfg.pad_policy, device=device,
+        mesh_info=(split_mesh_info(device, cfg.devices) if cfg.devices > 1
+                   else None))
 
 
 def _host(v) -> np.ndarray:
@@ -186,7 +181,7 @@ def _worker_payload(engine, supervisor, server,
                    "session_errors": server.session_errors,
                    "auth_failures": server.auth_failures},
         "windows": supervisor.total_windows,
-        "devices": 1,
+        "devices": engine.dp_size,
         # full registry snapshot (counters/gauges + RAW histogram samples)
         # — the aggregator merges these the same way as latency_s: sums
         # and concatenations, never precomputed percentiles
@@ -212,11 +207,12 @@ def worker_main(cfg: WorkerConfig, conn) -> None:
     then ``("result", payload)`` or ``("error", repr)`` before exit.
     """
     # The reference sets its forced host device split here, before jax's
-    # first import; one CUDA device needs no such setting (devices > 1
-    # raises in _build_engine).  The pool's parallelism is its processes:
-    # torch's default of one CPU thread per core in every worker
-    # oversubscribes the host (two CPU workers of a 16-patient mixed fleet
-    # on 8 cores took 74 s instead of 1.1 s, and stalled sessions out).
+    # first import; the port splits its one device in _build_engine
+    # (split_mesh_info) and needs no such setting.  The pool's parallelism
+    # is its processes: torch's default of one CPU thread per core in every
+    # worker oversubscribes the host (two CPU workers of a 16-patient mixed
+    # fleet on 8 cores took 74 s instead of 1.1 s, and stalled sessions
+    # out).
     torch.set_num_threads(1)
     send_lock = threading.Lock()
 
@@ -655,16 +651,16 @@ def run_worker_fleet(sim: FleetSimulator, n_workers: int, *,
     follows failover respawns.  ``device`` is where every worker's engine
     runs (``None``: the card, whose kernels are built here before the
     spawn; ``"cpu"`` on a machine without one); ``devices`` of 0 or 1 is
-    that one device, more raises (ROADMAP.md A4).  ``chaos`` injects the
-    fault schedule (worker kill, connection partitions, frame corruption,
-    consumer stall); recovery events are counted in the parent registry
-    (``worker_restarts_total``) and merged into the rollup ``metrics``.
+    that one device, ``n > 1`` shards each worker's dispatch over ``n``
+    data slabs of it.  ``chaos`` injects the fault schedule (worker kill,
+    connection partitions, frame corruption, consumer stall); recovery
+    events are counted in the parent registry (``worker_restarts_total``)
+    and merged into the rollup ``metrics``.
     Raises only if EVERY worker failed; partial failures are surfaced in
     ``failed_workers`` (worker id, reason, affected patients).
     """
     if n_workers < 1:
         raise ValueError(f"need ≥ 1 worker, got {n_workers}")
-    _check_devices(devices)
     dev = resolve_device(device)
     if dev.type == "cuda":
         from repro_torch.kernels import build

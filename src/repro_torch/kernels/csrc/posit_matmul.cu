@@ -23,14 +23,15 @@
 //    tree of 31 shuffles, each step halving the live sums, so lane l ends
 //    with the warp's sum of output l of the tile; the eight warps' sums
 //    are then added in warp order, and the result rounded once;
-//  * where the output tiles alone are fewer than the SMs, K is split
-//    across blocks as well: each split writes its sums to scratch and
-//    posit_matmul_round_combine_kernel adds the splits in split order and
-//    rounds.  No atomics: the same bits every run.
+//  * where one row block's output tiles are fewer than the H100's 132
+//    SMs, K is split across blocks as well: each split writes its sums to
+//    scratch and posit_matmul_round_combine_kernel adds the splits in
+//    split order and rounds.  No atomics: the same bits every run.  The
+//    split follows K and N alone, never M, so a row's bits do not depend
+//    on how many rows share the launch.
 // Build with -fmad=false: each product rounds before it adds, as in the
-// plain version.  The order of the sum differs from torch.matmul's, so
-// the result agrees with round(a @ b) within one format ulp, not bit for
-// bit.
+// plain version, which sums in this kernel's order
+// (kernels/posit_matmul.py::round_matmul_sum): the two agree bit for bit.
 //
 // 2. The decode-fused product C[M,N] f32 = decode(A_bits[M,K]) .
 //    decode(B_bits[K,N]), the posit bits staying in device memory.

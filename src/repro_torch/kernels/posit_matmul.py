@@ -8,11 +8,14 @@
   (32 outputs) over one split of K; each thread accumulates every 256th k
   of the split in the input's float type (f32 on the main path), the
   threads' partials are added in a fixed tree (warp shuffles, then the
-  eight warps in order) and the sum is rounded once; where the output
-  tiles alone would leave SMs idle, K is split across blocks and a second
-  kernel adds the splits in order and rounds.  No atomics: the same bits
-  every run.  Its summation order differs from ``torch.matmul``'s, so
-  kernel and plain version agree within one format ulp, not bitwise.
+  eight warps in order) and the sum is rounded once; where one row
+  block's output tiles alone would leave SMs idle, K is split across
+  blocks and a second kernel adds the splits in order and rounds.  No
+  atomics: the same bits every run.  The split is a function of K and N
+  alone, so an output's sum order, and its bits, do not depend on M: a
+  slab of rows gives the bits of the same rows of the whole batch.  The
+  plain version sums in the kernel's order (``round_matmul_sum``), so the
+  two agree bitwise.
 * ``posit_matmul`` — ``decode(A_bits[M,K]) · decode(B_bits[K,N])`` → f32,
   the posit bits read straight from device memory, each tile decoded to
   bf16 (the reference's compute dtype) and accumulated in f32.  Replaces
@@ -72,33 +75,74 @@ def _kernels() -> ctypes.CDLL:
 ROUND_THREADS = 256     # threads of a block, each on every 256th k
 ROUND_ACC = 32          # outputs of a block's tile: tm x tn
 _MAX_ROUND_SPLITS = 16
+# the blocks a split aims at: the H100 SXM's 132 SMs, fixed, so that the
+# plan, and with it every output's bits, is the same on any card and in
+# the plain version on the CPU
+ROUND_SPLIT_BLOCKS = 132
+_PLAIN_ELEMS = 1 << 22  # partials the plain version holds at once
 
 
 @functools.lru_cache(maxsize=1024)
-def round_matmul_plan(M: int, K: int, N: int,
-                      sms: int) -> Tuple[int, int, int, int]:
+def round_matmul_plan(K: int, N: int) -> Tuple[int, int, int, int]:
     """(tm, tn, splits, per) for the rounded matmul.
 
     A block owns a tm × tn output tile (tn = 8, 4, 2 or 1, the least power
     of two at or above N up to 8, and tm = 32 / tn, so each of a warp's
     lanes ends up with one output of the tile) over K's split ``s``,
     [s·per, min((s + 1)·per, K)); ``per`` is a multiple of the block's 256
-    threads.  K is split across blocks until the tiles times the splits
-    fill ``sms``, at most 16 ways and never below one k per
-    thread, so no split is empty."""
+    threads.  K is split across blocks until one row block's tiles times
+    the splits fill ``ROUND_SPLIT_BLOCKS``, at most 16 ways and never
+    below one k per thread, so no split is empty.  M takes no part: the
+    sum order of every output is a function of K and N alone."""
     tn = min(8, 1 << max(0, N - 1).bit_length())
     tm = ROUND_ACC // tn
-    tiles = -(-M // tm) * -(-N // tn)
+    tiles = -(-N // tn)
     chunks = max(1, -(-K // ROUND_THREADS))
-    want = max(1, min(-(-sms // max(1, tiles)), chunks, _MAX_ROUND_SPLITS))
+    want = max(1, min(-(-ROUND_SPLIT_BLOCKS // tiles), chunks,
+                      _MAX_ROUND_SPLITS))
     per = -(-chunks // want) * ROUND_THREADS
     return tm, tn, max(1, -(-K // per)), per
 
 
+def round_matmul_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` summed in the rounded matmul kernel's order, unrounded:
+    thread t of split s adds the products of k = s·per + t + 256·i in
+    order; each warp's 32 partials are added pairwise (lane ^ 16, 8, 4, 2,
+    1, here as halvings: float addition commutes); the eight warps' sums
+    are added in order, then the splits in order.  Rows are summed in
+    slabs of at most ``_PLAIN_ELEMS`` partials, which changes no bit."""
+    (M, K), N = a.shape, b.shape[1]
+    _, _, splits, per = round_matmul_plan(K, N)
+    T = ROUND_THREADS
+    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    step = max(1, _PLAIN_ELEMS // (T * max(N, 1)))
+    for r0 in range(0, M, step):
+        rows = a[r0:r0 + step]
+        total = None
+        for s in range(splits):
+            end = min(K, (s + 1) * per)
+            acc = torch.zeros((T, rows.shape[0], N), dtype=a.dtype,
+                              device=a.device)
+            for k0 in range(s * per, end, T):
+                n = min(T, end - k0)
+                acc[:n] += rows[:, k0:k0 + n].T[:, :, None] \
+                    * b[k0:k0 + n][:, None, :]
+            x = acc.view(T // 32, 32, rows.shape[0], N)
+            for h in (16, 8, 4, 2, 1):
+                x = x[:, :h] + x[:, h:2 * h]
+            part = x[0, 0]
+            for w in range(1, T // 32):
+                part = part + x[w, 0]
+            total = part if total is None else total + part
+        out[r0:r0 + step] = total
+    return out
+
+
 def posit_matmul_round_torch(a: torch.Tensor, b: torch.Tensor,
                              fmt: PositFormat) -> torch.Tensor:
-    """Plain version (and the kernel's oracle): ``round(a @ b)``."""
-    return round_posit_math(a @ b, fmt)
+    """Plain version (and the kernel's oracle): ``round(a @ b)``, summed
+    in the kernel's order."""
+    return round_posit_math(round_matmul_sum(a, b), fmt)
 
 
 def posit_matmul_round(a: torch.Tensor, b: torch.Tensor,
@@ -122,8 +166,7 @@ def posit_matmul_round(a: torch.Tensor, b: torch.Tensor,
         raise ValueError("posit_matmul_round: dims must fit int32")
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if M and N:
-        tm, tn, splits, per = round_matmul_plan(
-            M, K, N, build.sm_count(a.device.index))
+        tm, tn, splits, per = round_matmul_plan(K, N)
         if -(-M // tm) * -(-N // tn) >= 2 ** 31:
             raise ValueError("posit_matmul_round: too many output tiles")
         part = (torch.empty((splits, M, N), dtype=a.dtype, device=a.device)

@@ -20,7 +20,9 @@ metrics registry mirrors the ledger and counts built pipeline callables,
 and an optional tracer records dispatch spans from the stamps the ledger
 already takes.  The ingest layer's hooks (``pending_windows``,
 ``release_patient``, ``evict_patient``, ``reset``) close streams and free
-their state.  Not here: mesh sharding (ROADMAP A4).
+their state.  With a ``mesh_info``, each dispatch is sharded over the
+mesh's data axis (``repro_torch.distributed.make_fleet_batch_fn``), bit
+for bit the single-device dispatch.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import torch
 
 from repro_torch.core.arith import fusion_cache_key
 from repro_torch.core.device import resolve_device
+from repro_torch.distributed.sharding import fleet_pad, make_fleet_batch_fn
 from repro_torch.obs import MetricsRegistry, bind_stream_engine
 
 from .accounting import EnergyLedger, window_energy_nj
@@ -103,9 +106,10 @@ class StreamEngine:
                  autotune_horizon: int = 256,
                  pad_auto_threshold: float = 0.25,
                  result_capacity: Optional[int] = 4096,
-                 device=None, metrics=None, tracer=None):
-        """``device``: where windows are scored (default: the card; without
-        CUDA this raises unless ``device="cpu"`` is given).
+                 device=None, metrics=None, tracer=None, mesh_info=None):
+        """``device``: where windows are scored (default: the card, or the
+        mesh's first device; without CUDA this raises unless
+        ``device="cpu"`` is given).  Trackers live there.
 
         ``pad_to_max``: always pad dispatches to ``max_batch``.
         ``pad_policy`` supersedes it: ``"pow2"`` / ``"max"`` force a
@@ -132,8 +136,23 @@ class StreamEngine:
         series; here they count the pipeline callables built, and reused,
         per ``(task, fmt, fusion_cache_key())``, and flips of that key
         between dispatches.
+
+        ``mesh_info`` (a ``repro_torch.distributed.MeshInfo``, e.g. from
+        ``launch.mesh.make_fleet_mesh_info`` or ``split_mesh_info``) shards
+        every dispatch over the mesh's data axis: the batch is padded to a
+        multiple of the data-parallel size (``fleet_pad``), each slab runs
+        the pipeline's callable built for its device, and the slabs'
+        ``[real, padded]`` rows are reduced through
+        ``distributed.collectives.ledger_psum`` and checked against the
+        host's staged count.  Outputs are bit-identical to the
+        single-device path.  A 1-device mesh (or ``None``) takes the plain
+        path.
         """
+        if device is None and mesh_info is not None:
+            device = mesh_info.devices[0]
         self.device = resolve_device(device)
+        self.mesh_info = mesh_info
+        self.dp_size = int(mesh_info.dp_size) if mesh_info is not None else 1
         self.pipelines = dict(pipelines)
         self.router = router or PrecisionRouter()
         self.max_batch = int(max_batch)
@@ -292,31 +311,42 @@ class StreamEngine:
         """The strategy dispatches use right now: "pow2" or "max"."""
         return "max" if self._effective_pad_to_max() else "pow2"
 
-    def _fn(self, task: str, fmt: str):
+    def _fn(self, task: str, fmt: str, device=None):
         # keyed on the live fusion_cache_key so a backend/quire toggle
         # mid-flight builds a fresh callable instead of serving the stale
         # one — and so the probes see every rebuild it causes
+        device = self.device if device is None else device
         fkey = fusion_cache_key()
         if self._last_fusion_key is None:
             self._last_fusion_key = fkey
         elif fkey != self._last_fusion_key:
             self._fusion_changes.inc(site="stream")
             self._last_fusion_key = fkey
-        key = (task, fmt, fkey)
+        key = (task, fmt, fkey, device)
         fn = self._fns.get(key)
         if fn is None:
-            fn = self._fns[key] = self.pipelines[task].make_fn(fmt,
-                                                               self.device)
+            fn = self._fns[key] = self.pipelines[task].make_fn(fmt, device)
             self._jit_programs.inc(site="stream", task=task, fmt=fmt)
         else:
             self._jit_hits.inc(site="stream", task=task, fmt=fmt)
         return fn
+
+    def _sharded_fn(self, task: str, fmt: str):
+        """The dispatch over the mesh's data axis: one pipeline callable
+        per distinct device of the mesh, each slab on its own."""
+        devices = self.mesh_info.dp_devices
+        fns = {d: self._fn(task, fmt, d) for d in dict.fromkeys(devices)}
+        return make_fleet_batch_fn(tuple(fns[d] for d in devices),
+                                   self.mesh_info)
 
     def _dispatch(self, task: str, fmt: str, windows: List[Window]) -> None:
         pipe = self.pipelines[task]
         B = len(windows)
         Bpad = self.max_batch if self._effective_pad_to_max() \
             else bucket_size(B, self.max_batch)
+        if self.dp_size > 1:
+            # every slab the same size; the extra rows are ordinary padding
+            Bpad = fleet_pad(Bpad, self.dp_size)
         stacks: Dict[str, np.ndarray] = {}
         for m in pipe.spec.modalities:
             stack = np.zeros((Bpad, m.channels, pipe.spec.window_samples(m)),
@@ -325,16 +355,31 @@ class StreamEngine:
                 stack[i] = w.arrays[m.name]
             stacks[m.name] = stack
         t0 = time.perf_counter()
-        arrays = {k: torch.from_numpy(v).to(self.device)
-                  for k, v in stacks.items()}
-        # one device→host copy per output per batch; WindowResult rows are
-        # views into these arrays
-        outs = {k: v.cpu().numpy()
-                for k, v in self._fn(task, fmt)(arrays).items()}
+        if self.dp_size > 1:
+            mask = np.zeros((Bpad,), np.int32)
+            mask[:B] = 1
+            host, ledger_row = self._sharded_fn(task, fmt)(stacks, mask)
+            outs = {k: v.numpy() for k, v in host.items()}
+            # the reduced slab counts ARE the ledger's row; a mismatch with
+            # the host's view means the sharding dropped rows
+            n_real, n_padded = (int(v) for v in ledger_row)
+            if n_real != B:
+                raise RuntimeError(
+                    f"sharded dispatch accounted {n_real} real windows, "
+                    f"host staged {B} (task={task!r}, fmt={fmt!r})")
+        else:
+            arrays = {k: torch.from_numpy(v).to(self.device)
+                      for k, v in stacks.items()}
+            # one device→host copy per output per batch; WindowResult rows
+            # are views into these arrays
+            outs = {k: v.cpu().numpy()
+                    for k, v in self._fn(task, fmt)(arrays).items()}
+            n_real, n_padded = B, Bpad - B
         dt = time.perf_counter() - t0
         rows = [{k: v[i] for k, v in outs.items()} for i in range(B)]
         n_esc, esc_nj = self._track(pipe, task, fmt, windows, rows)
-        self.ledger.record(task, fmt, B, Bpad - B, dt, pipe.ops_per_window,
+        self.ledger.record(task, fmt, n_real, n_padded, dt,
+                           pipe.ops_per_window,
                            n_escalated=n_esc, escalation_extra_nj=esc_nj)
         done = time.perf_counter()
         tr = self.tracer

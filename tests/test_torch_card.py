@@ -129,8 +129,10 @@ def _ordered(v, fmt):
 def test_matmul_kernel_shapes_within_one_ulp_and_repeatable(M, K, N, dtype,
                                                             dev):
     """The main path's shapes (mel, centroid, DCT, votes), ragged M and N,
-    K split across blocks or not, f32 and f64: within one posit16 ulp of
-    the plain version, and two calls give the same bits."""
+    K split across blocks or not, f32 and f64: bitwise equal to the plain
+    version (which sums in the kernel's order, so within one posit16 ulp
+    holds a fortiori), two calls give the same bits, and a slab of the
+    first rows gives those rows' bits."""
     from repro_torch.kernels.posit_matmul import round_matmul_plan
     fmt = get_format("posit16")
     g = torch.Generator().manual_seed(M + K + N)
@@ -144,10 +146,13 @@ def test_matmul_kernel_shapes_within_one_ulp_and_repeatable(M, K, N, dtype,
     assert posit_matmul_round.launches == before + 2
     p = posit_matmul_round_torch(a, b, fmt)
     assert int((_ordered(k, fmt) - _ordered(p, fmt)).abs().max()) <= 1
+    assert _equal_bits(k, p)
     assert _equal_bits(k, again)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m in (1, 2, 4, 6):
+        assert _equal_bits(posit_matmul_round(a[:m].contiguous(), b, fmt),
+                           k[:m])
     if (M, K, N) == (64, 2049, 20):
-        assert round_matmul_plan(M, K, N, sms)[2] > 1
+        assert round_matmul_plan(K, N)[2] > 1
 
 
 def _kv_append_case(g, name, in_dtype, B, cap, KV, D, s_new, dev):

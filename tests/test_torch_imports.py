@@ -2,13 +2,15 @@
 
 * With ``jax`` and ``repro`` blocked, ``repro_torch`` and every sub-module
   import, and so do the modules ``chip_smoke.py`` imports and the worker
-  pool's, the restart policy's, the MoE layer's and the encoder-decoder's
-  public names.
+  pool's, the restart policy's, the MoE layer's, the encoder-decoder's,
+  the fleet mesh's, the collectives' and the checkpoint manager's public
+  names.
 * No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
   ``jax`` or ``repro`` (an AST scan).
 * Entry points (the stream engine and window cores, ``build_model``,
   ``ServingEngine``, ``python -m repro_torch.launch.serve``, the
-  quickstart, the format study and the worker pool) resolve
+  quickstart, the format study, the worker pool, the fleet meshes and the
+  re-mesh) resolve
   ``device=None`` to the card and raise without CUDA; ``device="cpu"``
   runs on the CPU.
 * Every registered format makes an ``Arith`` and the quire switch
@@ -35,7 +37,9 @@ from repro_torch.core.arith import (Arith, backend_overrides, get_quire,
 from repro_torch.core.formats import ALL_FORMATS, FloatFormat
 from repro_torch.kernels import build, ops
 from repro_torch.ingest import FleetSimulator, run_worker_fleet
+from repro_torch.distributed import ElasticConfig, remesh
 from repro_torch.launch import serve as serve_cli
+from repro_torch.launch.mesh import make_fleet_mesh_info, split_mesh_info
 from repro_torch.models import build_model
 from repro_torch.serve import ServeConfig, ServingEngine
 from repro_torch.stream import StreamEngine, rpeak_pipeline
@@ -100,6 +104,14 @@ def test_slice_names_import_with_jax_and_repro_blocked():
         "    ssm_prefill, ssm_sequential_ref)\n"
         "from repro_torch.models.xlstm import (MLSTMCache, SLSTMCache,\n"
         "    mlstm_forward, mlstm_sequential_ref, slstm_forward)\n"
+        "from repro_torch.distributed import (ElasticConfig, MeshInfo,\n"
+        "    fleet_pad, largest_valid_mesh, make_fleet_batch_fn, remesh)\n"
+        "from repro_torch.distributed.collectives import (ledger_psum,\n"
+        "    posit_all_reduce, posit_all_reduce_ef)\n"
+        "from repro_torch.launch.mesh import (make_debug_mesh_info,\n"
+        "    make_fleet_mesh_info, split_mesh_info)\n"
+        "from repro_torch.checkpoint import CheckpointManager\n"
+        "from repro_torch.kernels.posit_matmul import round_matmul_sum\n"
         "print('ok')\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr
@@ -151,10 +163,16 @@ def _serving_engine(dev):
                             device=dev),
     lambda dev: build_model(reduced(CONFIGS["xlstm-1.3b"]), device=dev),
     lambda dev: build_model(reduced(CONFIGS["zamba2-7b"]), device=dev),
+    lambda dev: make_fleet_mesh_info(device=dev),
+    lambda dev: StreamEngine({"rpeak": rpeak_pipeline()},
+                             mesh_info=split_mesh_info(dev, 2)),
+    lambda dev: remesh(None if dev is None else [dev],
+                       ElasticConfig(model_parallel=1)),
 ], ids=["StreamEngine", "make_cough_scorer", "detect_rpeaks", "build_model",
         "ServingEngine", "launch.serve", "quickstart", "build_model_moe",
         "run_worker_fleet", "build_model_vlm", "build_model_encdec",
-        "build_model_ssm", "build_model_hybrid"])
+        "build_model_ssm", "build_model_hybrid", "make_fleet_mesh_info",
+        "split_mesh_info", "remesh"])
 def test_entry_points_need_the_card_unless_told(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

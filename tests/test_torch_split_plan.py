@@ -39,8 +39,9 @@ from repro_torch.kernels.posit_kv_attention import (BLOCKS_PER_SM, NEG_INF,
                                                     kv_split_plan, lane_plan,
                                                     posit_kv_attention_torch,
                                                     query_groups)
-from repro_torch.kernels.posit_matmul import (ROUND_ACC, ROUND_THREADS,
-                                              matmul_plan,
+from repro_torch.kernels.posit_matmul import (ROUND_ACC,
+                                              ROUND_SPLIT_BLOCKS,
+                                              ROUND_THREADS, matmul_plan,
                                               posit_matmul_round_torch,
                                               round_matmul_plan)
 
@@ -252,7 +253,7 @@ MAIN_PATH = [(64, 2049, 20), (64, 2049, 1), (64, 20, 13), (32, 10, 1)]
     (4096, 4096, 8), (8, 4096, 4096), (129, 255, 3), (33, 257, 17),
     (70, 513, 5), (5, 3, 2), (64, 0, 20), (300, 4096, 64)])
 def test_round_matmul_plan_covers_every_output_and_k_once(M, K, N):
-    tm, tn, splits, per = round_matmul_plan(M, K, N, H100_SMS)
+    tm, tn, splits, per = round_matmul_plan(K, N)
     assert tn in (1, 2, 4, 8) and tm * tn == ROUND_ACC
     assert tn >= min(N, 8)
     assert 1 <= splits <= 16 and per % ROUND_THREADS == 0
@@ -275,18 +276,21 @@ def test_round_matmul_plan_covers_every_output_and_k_once(M, K, N):
 
 
 def test_round_matmul_plan_splits_k_where_the_tiles_are_few():
-    """The mel and centroid products have 48 and 2 output tiles: K is split
-    until the blocks reach the SMs or one k a thread, the DCT and votes
-    (K <= 256) are not split."""
-    tm, tn, splits, _ = round_matmul_plan(64, 2049, 20, H100_SMS)
-    assert (tm, tn) == (4, 8) and 48 * splits >= H100_SMS
-    tm, tn, splits, per = round_matmul_plan(64, 2049, 1, H100_SMS)
-    assert (tm, tn, per) == (32, 1, ROUND_THREADS) and splits == 9
-    assert round_matmul_plan(64, 20, 13, H100_SMS)[2] == 1
-    assert round_matmul_plan(32, 10, 1, H100_SMS)[2] == 1
+    """One row block of the mel and centroid products has 3 and 1 output
+    tiles: K is split until those reach the H100's SMs or one k a thread
+    (9 splits of 256 for K = 2049, at any M), the DCT and votes (K <= 256)
+    are not split, and an output width that fills the SMs alone is not
+    split either.  The plan takes no M: the sum order is K's and N's."""
+    assert ROUND_SPLIT_BLOCKS == H100_SMS
+    assert round_matmul_plan(2049, 20) == (4, 8, 9, ROUND_THREADS)
+    assert round_matmul_plan(2049, 1) == (32, 1, 9, ROUND_THREADS)
+    assert round_matmul_plan(20, 13)[2] == 1
+    assert round_matmul_plan(10, 1)[2] == 1
+    assert round_matmul_plan(4096, 8 * H100_SMS)[2] == 1
+    assert round_matmul_plan(8192, 1)[2:] == (16, 2 * ROUND_THREADS)
 
 
-def round_matmul_mirror(a, b, fmt, sms):
+def round_matmul_mirror(a, b, fmt):
     """The rounded matmul kernel's summation order in plain torch: thread
     t of split s adds the products of k = s per + t + 256 i in order; each
     warp adds its lanes' partials pairwise across lane ^ 16, 8, 4, 2, 1;
@@ -294,7 +298,7 @@ def round_matmul_mirror(a, b, fmt, sms):
     and the sum is rounded once."""
     M, K = a.shape
     N = b.shape[1]
-    _, _, splits, per = round_matmul_plan(M, K, N, sms)
+    _, _, splits, per = round_matmul_plan(K, N)
     t = torch.arange(ROUND_THREADS)
     lane = torch.arange(32)
     total = None
@@ -315,6 +319,28 @@ def round_matmul_mirror(a, b, fmt, sms):
             part = part + x[w, 0]
         total = part if total is None else total + part
     return round_posit_math(total, fmt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M,K,N", MAIN_PATH + [
+    (37, 2049, 19), (3, 700, 5), (130, 4100, 9), (5, 3, 2), (64, 0, 20)])
+def test_plain_rounded_matmul_sums_in_the_kernels_order(M, K, N, dtype):
+    """The plain version (``round_matmul_sum``, vectorised, rows in slabs)
+    is bitwise the mirror of the kernel's schedule above, in f32 and
+    f64."""
+    fmt = get_format("posit16")
+    rng = np.random.default_rng(M * 7 + K + N)
+    a = round_posit_math(torch.from_numpy(
+        rng.random((M, K)) * np.exp2(rng.integers(0, 30, (M, K)))).to(dtype),
+        fmt)
+    b = round_posit_math(torch.from_numpy(
+        rng.standard_normal((K, N))).to(dtype), fmt)
+    got = posit_matmul_round_torch(a, b, fmt)
+    want = round_matmul_mirror(a, b, fmt)
+    assert torch.equal(got.view(torch.int64 if dtype == torch.float64
+                                else torch.int32),
+                       want.view(torch.int64 if dtype == torch.float64
+                                 else torch.int32))
 
 
 def _ulp_distance(a, b, fmt):
@@ -338,7 +364,7 @@ def test_round_matmul_mirror_within_one_ulp_of_pallas_kernel(name, shape):
          else np.linspace(0, 8000, K)[:, None])
     a = round_posit_math(torch.from_numpy(psd.astype(np.float32)), fmt)
     b = round_posit_math(torch.from_numpy(b.astype(np.float32)), fmt)
-    got = round_matmul_mirror(a, b, fmt, H100_SMS)
+    got = round_matmul_mirror(a, b, fmt)
     want = torch.from_numpy(np.array(posit_matmul_round_2d(
         jnp.asarray(a.numpy()), jnp.asarray(b.numpy()),
         JPositFormat(fmt.n, fmt.es), interpret=True)))

@@ -213,10 +213,43 @@ def test_partition_plans_round_robin():
     assert {p.task for p in parts[0]} == {"cough", "rpeak"}
 
 
-def test_sharded_workers_wait_for_a4():
-    sim = FleetSimulator(n_patients=2, windows=1, mixed=False, n_cough=0)
-    with pytest.raises(NotImplementedError, match="A4"):
-        run_worker_fleet(sim, 1, devices=2, device="cpu")
+def test_sharded_workers_equal_the_inproc_run():
+    """A worker with ``devices=2`` shards its dispatch over two data slabs
+    of its device (``split_mesh_info``), the counterpart of the
+    reference's forced host split: on a mixed fleet (cough and ECG, pinned
+    formats) the pool's ledger ``windows`` and ``total_nj`` and every
+    patient's digest equal one in-process engine's."""
+    from repro_torch.apps.cough import train_reference_forest
+    from repro_torch.stream import cough_pipeline
+
+    sim = FleetSimulator(n_patients=4, windows=2, seed=5, mixed=True,
+                         n_cough=2)
+    forest = train_reference_forest(*WorkerConfig.forest_train[:2],
+                                    n_trees=WorkerConfig.forest_train[2],
+                                    depth=WorkerConfig.forest_train[3],
+                                    device="cpu")
+    ref = StreamEngine({"cough": cough_pipeline(forest),
+                        "rpeak": rpeak_pipeline()}, max_batch=3,
+                       result_capacity=None, device="cpu")
+    sim.run_inproc(ref)
+    sup = Supervisor(ref, capacity=1 << 16)
+    sup.poll()
+    want = _result_digests(sup)
+    summary = ref.ledger.summary()
+
+    doc = run_worker_fleet(sim, 1, devices=2, max_batch=3, device="cpu")
+    assert not doc["failed_workers"]
+    assert [w["devices"] for w in doc["workers"]] == [2]
+    assert doc["digests"] == want and len(want) == 4
+    got = doc["groups"]
+    assert set(got) == set(summary)
+    for k in summary:
+        assert got[k]["windows"] == summary[k]["windows"], k
+        assert got[k]["total_nj"] == pytest.approx(summary[k]["total_nj"],
+                                                   rel=1e-12), k
+    # 3 -> 4 rows over 2 slabs: the pool pads more than the pow2 engine
+    assert got["fleet"]["padded_windows"] >= summary["fleet"][
+        "padded_windows"]
 
 
 def test_digests_hash_host_copies_of_tensor_outputs():
