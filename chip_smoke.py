@@ -166,9 +166,33 @@ Phases, each fatal on failure:
      leaves through ``posit_all_reduce`` and ``posit_all_reduce_ef`` at
      world size 1 on NCCL (an in-process ``HashStore``): bitwise
      decode(encode(x)), the EF residual exact, 2 encodes and 2 decodes a
-     call (3 and 3 with EF).
+     call (3 and 3 with EF);
+  10. training on the card: (a) gemma2-2b at full width and depth (26
+     layers, d_model 2304, vocab 256000, 2.614 G parameters, seeded
+     random weights) with posit16 QAT weights, 4 rows of 512
+     ``TokenPipeline`` tokens, through ``make_train_step`` (remat, AdamW,
+     the WSD schedule): one warm-up step (lr 0: the weights stay), then 4
+     timed steps with exactly 12 B1 launches each (one per rounded leaf),
+     the weights moving, finite losses and moments, no plain version on a
+     CUDA tensor (``PlainCalls(TRAIN_PLAIN)``); ms per step and tokens/s
+     (host clock, to the loss's host copy), AdamW's span per step (CUDA
+     events) beside 28 B a parameter, one step under ``torch.profiler``
+     (busy share, device kernels, B1's device ms beside its byte bound)
+     and one under a profiler of CUDA activity alone (busy share), B1
+     alone at the 12 leaves (its device kernels counted), the peak
+     memory; (b) every reduced config's loss and gradients on the card
+     against the CPU from the same weights within 2e-2 (MoE routes held
+     to the card's; xlstm on four seeds in f32 within 2e-2, and in bf16
+     from an exact-sum witness within 1.5 times the CPU's own spread
+     under one-ulp moves of its weights), three posit16 QAT
+     steps of reduced gemma2-2b (36 B1 launches) near the CPU's, reduced
+     qwen3-8b through ``launch/train.py`` resumed from a checkpoint within
+     rtol 1e-4, and the pod-compressed branch at world size 1 on NCCL
+     (2 encodes and 2 decodes a gradient leaf, bitwise the plain codec).
 
-Phase 2 also holds the multiply-add bitwise and the decode-fused matmul
+Phase 2 also holds the round bitwise at a phase 10 QAT leaf's shape,
+(26, 2304, 1024) f32 posit16, and the multiply-add bitwise and the
+decode-fused matmul
 within 1e-5 of its largest output against their plain versions (at the
 quickstart's shape, the FFN width in posit16 and posit8, a ragged shape
 and an int32 container), the IEEE rounding on the card bitwise against the
@@ -303,6 +327,15 @@ RECURRENT_SEEDS = (0, 1, 2, 3)  # phases 5e, 5f: the reduced configs' seeds
 WITNESS_FACTOR = 1.5           # phases 5e, 5f: the card's largest distance
                                # from the exact-sum witness over the seeds,
                                # over the CPU's (both in LOGIT_TOL tiers)
+TRAIN_ARCH = "gemma2-2b"        # phase 10: trained at full width
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_STEPS = 4                # timed steps after one warm-up step
+TRAIN_ROUNDS = 12              # B1 launches a step: the rounded leaves
+TRAIN_LEAF = (26, 2304, 1024)  # phase 2: B1 at gemma2-2b's stacked wk
+TRAIN_TOL = 2e-2               # phase 10b: the loss (absolute)
+TRAIN_GRAD_TOL = 2e-2          # ... a gradient leaf (relative L2)
+ULP_MOVES = 4                  # ... xlstm's bf16 spread: one-ulp moves
+RESUME_RTOL = 1e-4             # phase 10b: the reference's resume bound
 INGEST_WINDOWS = 2             # phase 7: windows per patient
 INGEST_MAX_BATCH = 16
 INGEST_STALLED = "ecg-031"     # silent after its first frame, evicted
@@ -394,7 +427,9 @@ def device_kernels(fn, reps: int = 50):
     kernel, copy and fill that ``torch.profiler`` records on the card, in
     a profile of 2 ``reps`` calls less one of ``reps`` calls, over
     ``reps`` (the profiler may miss the first few events of a window; the
-    difference cancels that); NaN if it recorded none."""
+    difference cancels that).  A pair in which a profile recorded none
+    (the profiler drops a window's events now and then) is taken again,
+    up to ``PROFILE_TRIES`` pairs; NaN if none recorded any."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -410,11 +445,12 @@ def device_kernels(fn, reps: int = 50):
                 sum(e.count for e in rows))
     fn()
     torch.cuda.synchronize()
-    us1, n1 = totals(reps)
-    us2, n2 = totals(2 * reps)
-    if not n1 or not n2:
-        return float("nan"), float("nan")
-    return (us2 - us1) / reps / 1e3, (n2 - n1) / reps
+    for _ in range(PROFILE_TRIES):
+        us1, n1 = totals(reps)
+        us2, n2 = totals(2 * reps)
+        if n1 and n2:
+            return (us2 - us1) / reps / 1e3, (n2 - n1) / reps
+    return float("nan"), float("nan")
 
 
 def ptxas_report(log_text: str):
@@ -600,6 +636,20 @@ def check_kernels(dev, report):
                                      f"{v.numel()}: not bitwise equal")
         log(f"  posit_round {str(x.dtype)[6:]}: {len(views)} views at element"
             f" offsets 0-{per - 1}, ragged lengths and 0-d: bitwise")
+    # a training leaf (phase 10's QAT round): gemma2-2b's stacked wk, drawn
+    # as its init draws it
+    fmt = get_format("posit16")
+    x = torch.randn(TRAIN_LEAF, generator=gen).to(dev) / math.sqrt(
+        TRAIN_LEAF[-2])
+    k, p = posit_round(x, fmt), posit_round_torch(x, fmt)
+    torch.cuda.synchronize()
+    if not bits_equal(k, p):
+        raise AssertionError(f"posit_round at the training leaf {TRAIN_LEAF}"
+                             f": not bitwise equal to its plain version")
+    err = max(err, max_abs_err(k, p))
+    log(f"  posit_round posit16 float32 {TRAIN_LEAF} (a QAT leaf of phase "
+        f"10): bitwise")
+    del x, k, p
     report["posit_round"]["max_abs_err"] = err
 
     # posit_butterfly: FFT stage planes at cough batch 32, both layouts
@@ -4233,6 +4283,575 @@ def run_all_reduce(dev, state, counters, card):
             f"{card})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: training on the card
+# ---------------------------------------------------------------------------
+
+class AdamWSpans:
+    """While entered, each ``adamw_update`` of the train step runs between
+    two CUDA events: ``ms()`` gives each call's span on the device (its
+    first kernel's start to its last's end, gaps included)."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.train import step as train_step
+        self.mod, self.real, self.spans = train_step, \
+            train_step.adamw_update, []
+
+        def timed(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = self.real(*a, **kw)
+            ev[1].record()
+            self.spans.append(ev)
+            return out
+        self.mod.adamw_update = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.adamw_update = self.real
+
+    def ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.spans]
+
+
+def finite_tree(tree) -> bool:
+    import torch
+    from repro_torch.checkpoint import flatten_state
+    return all(bool(torch.isfinite(t).all())
+               for t in flatten_state(tree)[0])
+
+
+def run_train_full(dev, counters, card, arch=TRAIN_ARCH, batch=TRAIN_BATCH,
+                   seq=TRAIN_SEQ):
+    """(a) ``arch`` at full width and depth, trained on the card with
+    posit16 QAT weights from ``TokenPipeline`` batches through
+    ``make_train_step``: one warm-up step (lr 0: the weights stay), then
+    ``TRAIN_STEPS`` timed steps, each ending on the loss's host copy, with
+    exactly ``TRAIN_ROUNDS`` B1 launches (one per rounded leaf, counted
+    from the tree before the first call), the weights moving, finite
+    losses and moments (a non-finite gradient makes its clip scale and so
+    every moment NaN), no plain round on a CUDA tensor; each step's AdamW
+    span (CUDA events) beside its byte bound; one more step under
+    ``torch.profiler`` (busy share, kernels, B1's device ms beside its
+    bound), and one under a profiler of CUDA activity alone (the busy
+    share of a step it stretches less); the peak memory.  Returns B1's row at the training leaves."""
+    import torch
+    from repro_torch.checkpoint import flatten_state
+    from repro_torch.configs import CONFIGS
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels.counts import TRAIN_PLAIN, PlainCalls
+    from repro_torch.kernels.posit_round import posit_round, posit_round_torch
+    from repro_torch.launch.mesh import make_debug_mesh_info
+    from repro_torch.models import build_model
+    from repro_torch.train.step import init_train_state, make_train_step
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = CONFIGS[arch]
+    policy = QuantPolicy(weights="posit16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_init = time.perf_counter()
+    model = build_model(cfg, policy, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    leaves = flatten_state(params)[0]
+    n_params = sum(t.numel() for t in leaves)
+    rounded = [t for t in leaves if t.dim() >= 2]
+    n_rounded = sum(t.numel() for t in rounded)
+    if len(rounded) != TRAIN_ROUNDS:
+        raise AssertionError(f"{arch}: {len(rounded)} leaves to round, "
+                             f"predicted {TRAIN_ROUNDS}")
+    state = init_train_state(params)
+    step = make_train_step(model, make_debug_mesh_info(device=dev), policy)
+    pipe = TokenPipeline(TokenPipelineConfig(vocab=cfg.vocab, seq_len=seq,
+                                             global_batch=batch))
+    probe = params["layers"]["attn"]["wq"]["w"][:, :64, :64]
+    torch.cuda.synchronize()
+    log(f"  {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab}, {n_params} parameters ({4 * n_params / 1e9:.2f} GB "
+        f"f32; with the AdamW moments {12 * n_params / 1e9:.2f} GB), "
+        f"posit16 QAT ({len(rounded)} leaves, {n_rounded} values), B = "
+        f"{batch}, S = {seq}; initialized in "
+        f"{time.perf_counter() - t_init:.1f} s")
+
+    def one(s):
+        b = pipe.batch_at(s)
+        before = probe.clone()
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, met = step(state, b)
+        loss = float(met["loss"])          # the host copy ends the step
+        dt = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters if c.launches}
+        if launches != {"posit_round": TRAIN_ROUNDS}:
+            raise AssertionError(f"{arch} step {s}: launches {launches}, "
+                                 f"predicted {TRAIN_ROUNDS} posit_round")
+        if not math.isfinite(loss) or not finite_tree(st["opt"]):
+            raise AssertionError(f"{arch} step {s}: loss {loss} or a "
+                                 f"moment not finite")
+        moved = not torch.equal(probe, before)
+        if moved != (s > 0):
+            raise AssertionError(f"{arch} step {s} (lr "
+                                 f"{float(met['lr'])}): the weights "
+                                 f"{'moved' if moved else 'stayed'}")
+        return st, loss, dt, float(met["lr"])
+
+    state, loss0, dt0, _ = one(0)
+    log(f"  warm-up step 0: loss {loss0:.4f}, {dt0 * 1e3:.1f} ms (lr 0: the "
+        f"weights stayed)")
+    losses, times, lrs = [], [], []
+    with PlainCalls(TRAIN_PLAIN) as plain, AdamWSpans() as spans:
+        for s in range(1, TRAIN_STEPS + 1):
+            state, loss, dt, lr = one(s)
+            losses.append(loss)
+            times.append(dt)
+            lrs.append(lr)
+    if any(plain.calls.values()):
+        raise AssertionError(f"{arch}: a plain version on a CUDA tensor: "
+                             f"{plain.calls}")
+    adamw = spans.ms()
+    tokens = batch * seq
+    adamw_bound = 28 * n_params / HBM_BYTES_PER_S * 1e3
+    round_bound = 8 * n_rounded / HBM_BYTES_PER_S * 1e3
+    log(f"  steps 1-{TRAIN_STEPS}: losses {[round(x, 4) for x in losses]}, "
+        f"lr {lrs}; ms per step (host clock, to the loss's host copy) "
+        f"{[round(t * 1e3, 1) for t in times]}, tokens/s "
+        f"{[round(tokens / t, 1) for t in times]}; {TRAIN_ROUNDS} "
+        f"posit_round launches a step (as predicted), no plain version on "
+        f"a CUDA tensor, the weights moved and every moment finite at each "
+        f"step ({card})")
+    log(f"  AdamW a step (CUDA events around adamw_update): "
+        f"{[round(x, 3) for x in adamw]} ms; bound {adamw_bound:.3f} ms "
+        f"(28 B a parameter: p, g, m, v read, p, m, v written, over "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s) ({card})")
+    b = pipe.batch_at(TRAIN_STEPS + 1)
+    lead = torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # the profiler may miss a window's first events, and the step
+        # launches B1 first: a few fills lead
+        for _ in range(20):
+            lead.fill_(1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        float(met["loss"])
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    report_busy(events, wall, "a profiled step (with 20 leading fills of "
+                "one value)", 8)
+    # the device's share of a step that the profiler stretches less:
+    # CUDA activity only, no host operator events
+    b = pipe.batch_at(TRAIN_STEPS + 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof_dev:
+        for _ in range(20):
+            lead.fill_(1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        float(met["loss"])
+        wall_dev = time.perf_counter() - t0
+    report_busy(prof_dev.key_averages(), wall_dev, "a step profiled for "
+                "CUDA activity only (with 20 leading fills)", 0)
+    round_dev, n = per_launch_ms(events, "posit_round_kernel", TRAIN_ROUNDS)
+    log(f"  B1 (posit_round) in the profiled step: {round_dev:.3f} ms on the "
+        f"device for its {TRAIN_ROUNDS} launches ({n} recorded), bound "
+        f"{round_bound:.3f} ms (8 B a value, {n_rounded} values) ({card})")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  peak memory allocated {peak:.2f} GiB "
+        f"({torch.cuda.max_memory_allocated() / 1e9:.2f} GB) ({card})")
+    if not finite_tree(state["params"]):
+        raise AssertionError(f"{arch}: a weight is not finite")
+    fmt = get_format("posit16")
+
+    def qat_round():
+        return [posit_round(t, fmt) for t in rounded]
+    posit_round.launches = 0
+    qat_round()
+    launched = posit_round.launches
+    if launched != TRAIN_ROUNDS:
+        raise AssertionError(f"{arch}'s QAT round: {launched} launches, "
+                             f"predicted {TRAIN_ROUNDS}")
+    ms = cuda_ms(qat_round, reps=1, samples=5)
+    # every kernel, copy and fill of a round and their device time; NaN
+    # where the profiler recorded none (it has missed B1's launches after
+    # the profiled steps).  Not ``device_ms``'s mean recorded launch times
+    # 12: the leaves run from 59904 to 589.8 M values, and a profile that
+    # dropped some big ones read below the byte bound
+    all_ms, kernels = device_kernels(qat_round, reps=5)
+    if not math.isnan(kernels) and kernels != TRAIN_ROUNDS:
+        raise AssertionError(f"{arch}'s QAT round: {kernels} device "
+                             f"kernels a round, predicted {TRAIN_ROUNDS}")
+    log(f"  the QAT round alone: {launched} launches, "
+        + ("device kernels not measured (the profiler recorded none)"
+           if math.isnan(kernels) else f"{kernels:g} device kernels, "
+           f"{all_ms:.3f} ms on the device") + f" a round ({card})")
+    row = dict(name="posit_round",
+               shape=f"{arch}'s {TRAIN_ROUNDS} QAT leaves, a step "
+                     f"({n_rounded} f32 values)",
+               ms=ms,
+               device_ms=None if math.isnan(all_ms) else all_ms,
+               device_kernels=None if math.isnan(kernels) else kernels,
+               plain_ms=cuda_ms(lambda: [posit_round_torch(t, fmt)
+                                         for t in rounded], reps=1,
+                                samples=3),
+               bound_ms=round_bound, bound_by="bytes", library_ms=None)
+    del state, params, leaves, rounded, probe, step, model
+    torch.cuda.empty_cache()
+    return row, {"ms_per_step": times, "tokens_per_s": [tokens / t
+                                                         for t in times],
+                 "adamw_ms": adamw, "peak_gib": peak, "losses": losses}
+
+
+def reduced_train_batch(cfg, B=2, S=32):
+    """``tests/test_models_smoke.py::make_batch``'s inputs, as tensors."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, size=(B, S)).astype(np.int32))}
+    if cfg.family == "vlm":
+        batch["frontend"] = torch.from_numpy(rng.normal(
+            size=(B, cfg.frontend_len, cfg.d_model)).astype(np.float32))
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(B, S, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+class CardRoutes:
+    """MoE routing held the same on two devices: entered with ``record``,
+    each ``moe.route`` call's chosen experts are kept; entered with
+    ``replay``, each call takes the kept experts (its gates and their
+    renormalized values computed on its own device) and counts the tokens
+    whose own top-k differs.  A bf16 GEMM that rounds in another order
+    moves a router's near-tie (gate margins of ~1e-4 in the reduced
+    configs) to the other expert; replaying the card's choices compares
+    the arithmetic, and ``flips`` says how many routes the CPU would have
+    chosen otherwise."""
+
+    def __init__(self):
+        self.kept, self.flips, self.replay = [], 0, False
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.mod, self.real = moe, moe.route
+        it = iter(list(self.kept))
+
+        def route(xf, router_w, k):
+            gates, gatev, assign = self.real(xf, router_w, k)
+            if not self.replay:
+                self.kept.append(assign.cpu())
+                return gates, gatev, assign
+            card = next(it).to(assign.device)
+            self.flips += int((torch.sort(card, -1).values
+                               != torch.sort(assign, -1).values)
+                              .any(-1).sum())
+            gatev = torch.gather(gates, -1, card)
+            gatev = gatev / torch.clamp(gatev.sum(-1, keepdim=True),
+                                        min=1e-9)
+            return gates, gatev, card
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.real
+        self.replay = True
+
+
+def rel_l2_max(a, b):
+    """The largest relative L2 distance of a leaf of ``a`` from ``b``'s."""
+    import torch
+    return max(float(torch.linalg.vector_norm(x - y)
+                     / max(float(torch.linalg.vector_norm(y)), 1e-30))
+               for x, y in zip(a, b))
+
+
+class F32Compute:
+    """The models' compute dtype (``COMPUTE_DTYPE``, bf16) set to f32 while
+    entered: the embedding's output, and so every product that takes its
+    operands' dtype, stays f32."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import common
+        self.mod, self.real = common, common.COMPUTE_DTYPE
+        common.COMPUTE_DTYPE = torch.float32
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.COMPUTE_DTYPE = self.real
+
+
+def one_ulp(weights, seed):
+    """``weights`` with every value moved by one f32 ulp, up or down at
+    random (from ``seed``)."""
+    import torch
+    from repro_torch.models.common import tree_map
+    g = torch.Generator().manual_seed(seed)
+    return tree_map(lambda t: torch.nextafter(t, torch.where(
+        torch.rand(t.shape, generator=g) < 0.5, math.inf, -math.inf)),
+        weights)
+
+
+def train_reduced_on_card_and_cpu(dev, card):
+    """(b) every reduced config's loss and gradients on the card and on
+    the CPU from the same weights: the loss within ``TRAIN_TOL``, each
+    gradient leaf within a relative L2 error of ``TRAIN_GRAD_TOL`` (the
+    CPU tests' bound against the reference).  A MoE config's CPU run takes
+    the card's routes (``CardRoutes``); the routes its own top-k would
+    have flipped are logged.  The ssm family (xlstm) is checked on each of
+    ``RECURRENT_SEEDS``: its bf16 gradients move by 10-42 % when every
+    weight moves by one ulp (on the CPU, ``one_ulp``: a bf16 rounding that
+    flips; in f32 they move by < 1e-4), so with the compute dtype f32
+    (``F32Compute``) the card's gradients are held within
+    ``TRAIN_GRAD_TOL`` of the CPU's, and in bf16 the card's distance from
+    an exact-sum run on the CPU (``exact_sums``) within
+    ``WITNESS_FACTOR`` times the CPU's own spread: the largest distance
+    from that witness of the CPU's gradients and of theirs after
+    ``ULP_MOVES`` one-ulp moves of the weights (or ``TRAIN_GRAD_TOL``).
+    Every config is checked before a failure is raised."""
+    import contextlib
+    import torch
+    from repro_torch.checkpoint import flatten_state
+    from repro_torch.configs import CONFIGS, reduced
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    cpu = torch.device("cpu")
+    worst, failed = {}, []
+
+    def loss_grads(cfg, weights, batch, d, routes, mode=None):
+        params = tree_map(lambda t: t.to(d, copy=True).requires_grad_(),
+                          weights)
+        leaves = flatten_state(params)[0]
+        ctx = {"exact": exact_sums, "f32": F32Compute}.get(
+            mode, contextlib.nullcontext)
+        with routes, ctx():
+            loss, _ = build_model(cfg, device=d).loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return float(loss.detach()), [
+            torch.zeros(t.shape) if g is None else g.detach().cpu()
+            for t, g in zip(leaves, grads)]
+
+    for arch in sorted(CONFIGS):
+        cfg = reduced(CONFIGS[arch])
+        batch = reduced_train_batch(cfg)
+        seeds = RECURRENT_SEEDS if cfg.family == "ssm" else (SEED,)
+        readings = []
+        for seed in seeds:
+            weights = build_model(cfg, device=cpu).init(
+                torch.Generator().manual_seed(seed))
+            routes = CardRoutes()
+            lc, gc = loss_grads(cfg, weights, batch, dev, routes)
+            lp, gp = loss_grads(cfg, weights, batch, cpu, routes)
+            rel = rel_l2_max(gc, gp)
+            tag = f"{arch} seed {seed}"
+            n_routes = sum(a.shape[0] for a in routes.kept)
+            if routes.flips > 0.05 * n_routes:
+                failed.append(f"{tag}: {routes.flips} of {n_routes} routes "
+                              f"flipped")
+            if not all(bool(torch.isfinite(g).all()) for g in gc):
+                failed.append(f"{tag}: a gradient on the card is not "
+                              f"finite")
+            if abs(lc - lp) >= TRAIN_TOL:
+                failed.append(f"{tag}: card loss {lc}, CPU {lp}")
+            if cfg.family != "ssm":
+                readings.append(f"{abs(lc - lp):.2e} {rel:.2e} "
+                                f"{routes.flips}")
+                if rel >= TRAIN_GRAD_TOL:
+                    failed.append(f"{tag}: largest gradient relative L2 "
+                                  f"{rel} (bound {TRAIN_GRAD_TOL})")
+                continue
+            gw = loss_grads(cfg, weights, batch, cpu, routes, "exact")[1]
+            w_card, w_cpu = rel_l2_max(gc, gw), rel_l2_max(gp, gw)
+            w_ulp = [rel_l2_max(loss_grads(
+                cfg, one_ulp(weights, ULP_MOVES * seed + k), batch, cpu,
+                routes)[1], gw) for k in range(ULP_MOVES)]
+            bound = WITNESS_FACTOR * max(w_cpu, *w_ulp, TRAIN_GRAD_TOL)
+            f32 = rel_l2_max(
+                loss_grads(cfg, weights, batch, dev, routes, "f32")[1],
+                loss_grads(cfg, weights, batch, cpu, routes, "f32")[1])
+            readings.append(
+                f"seed {seed}: {abs(lc - lp):.2e} {rel:.2e}, from the "
+                f"exact-sum witness card {w_card:.2e} CPU {w_cpu:.2e}, the "
+                f"CPU after one-ulp moves {min(w_ulp):.2e}-"
+                f"{max(w_ulp):.2e} (bound {bound:.2e}), in f32 card vs "
+                f"CPU {f32:.2e}")
+            if w_card > bound:
+                failed.append(f"{tag}: card gradients {w_card} from the "
+                              f"witness, over {bound}")
+            if f32 >= TRAIN_GRAD_TOL:
+                failed.append(f"{tag}: in f32, largest gradient relative "
+                              f"L2 {f32} (bound {TRAIN_GRAD_TOL})")
+        worst[arch] = "; ".join(readings)
+    log(f"  reduced configs, loss and gradients card vs CPU (|loss diff|, "
+        f"largest relative L2 of a gradient leaf, routes the CPU's own "
+        f"top-k flips, at most 5 % of them; bound {TRAIN_GRAD_TOL}): "
+        + ", ".join(f"{a} {w}" for a, w in worst.items()) + f" ({card})")
+    if failed:
+        raise AssertionError("reduced configs card vs CPU: "
+                             + "; ".join(failed))
+
+
+def train_steps_reduced(dev, counters, card):
+    """(b) three posit16 QAT steps of reduced gemma2-2b on the card
+    (``TRAIN_ROUNDS`` B1 launches a step, no plain version on a CUDA
+    tensor) and on the CPU from the same weights, losses within
+    ``TRAIN_TOL``; then a resume: reduced qwen3-8b trained 60 steps
+    straight and 50 + a checkpoint + 10 resumed (``launch/train.py``), the
+    last 10 losses within the reference's rtol 1e-4."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import CONFIGS, reduced
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels.counts import TRAIN_PLAIN, PlainCalls
+    from repro_torch.launch.mesh import make_debug_mesh_info
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.train.step import init_train_state, make_train_step
+    cfg = reduced(CONFIGS[TRAIN_ARCH])
+    policy = QuantPolicy(weights="posit16")
+    weights = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(SEED))
+    pipe = TokenPipeline(TokenPipelineConfig(vocab=cfg.vocab, seq_len=32,
+                                             global_batch=4))
+    losses = {}
+    for d in (dev, torch.device("cpu")):
+        state = init_train_state(tree_map(lambda t: t.to(d, copy=True),
+                                          weights))
+        step = make_train_step(build_model(cfg, policy, device=d),
+                               make_debug_mesh_info(device=d), policy)
+        for c in counters:
+            c.launches = 0
+        with PlainCalls(TRAIN_PLAIN) as plain:
+            losses[d.type] = []
+            for s in range(3):
+                state, met = step(state, pipe.batch_at(s))
+                losses[d.type].append(float(met["loss"]))
+        if d.type == "cuda":
+            launches = {c.__name__: c.launches for c in counters
+                        if c.launches}
+            if launches != {"posit_round": 3 * TRAIN_ROUNDS} or any(
+                    plain.calls.values()):
+                raise AssertionError(f"reduced QAT steps: launches "
+                                     f"{launches}, plain {plain.calls}")
+    diff = max(abs(a - b) for a, b in zip(losses[dev.type], losses["cpu"]))
+    if diff >= TRAIN_TOL:
+        raise AssertionError(f"reduced QAT steps: card {losses[dev.type]}, "
+                             f"CPU {losses['cpu']}")
+    log(f"  reduced {TRAIN_ARCH}, 3 posit16 QAT steps: card losses "
+        f"{[round(x, 5) for x in losses[dev.type]]}, CPU "
+        f"{[round(x, 5) for x in losses['cpu']]} (largest difference "
+        f"{diff:.2e}); {3 * TRAIN_ROUNDS} posit_round launches (as "
+        f"predicted), no plain version on a CUDA tensor ({card})")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train-")
+    try:
+        t0 = time.perf_counter()
+        _, full = train("qwen3-8b", steps=60, batch=4, seq=32,
+                        log_every=1000, device=dev)
+        t_full = time.perf_counter() - t0
+        train("qwen3-8b", steps=50, batch=4, seq=32, ckpt_dir=tmp,
+              log_every=1000, device=dev)
+        _, resumed = train("qwen3-8b", steps=60, batch=4, seq=32,
+                           ckpt_dir=tmp, log_every=1000, device=dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if len(resumed) != 10 or not np.allclose(full[-10:], resumed,
+                                             rtol=RESUME_RTOL, atol=0):
+        raise AssertionError(f"resume: {full[-10:]} against {resumed}")
+    gap = max(abs(a - b) / abs(a) for a, b in zip(full[-10:], resumed))
+    log(f"  reduced qwen3-8b through launch/train.py on the card: 60 steps "
+        f"in {t_full:.1f} s (host clock), loss {full[0]:.4f} -> "
+        f"{full[-1]:.4f}; resumed from step 50's checkpoint: the last 10 "
+        f"losses within rtol {gap:.2e} of the straight run's (bound "
+        f"{RESUME_RTOL}) ({card})")
+
+
+def train_pod_branch(dev, counters, card):
+    """(b) the pod-compressed branch at world size 1 on NCCL (an in-process
+    ``HashStore``): one step of reduced qwen3-8b with
+    ``grad_allreduce="posit16"`` on a (pod=1, data=1, model=1) mesh, every
+    gradient leaf through ``posit_all_reduce``: 2 encodes and 2 decodes a
+    leaf, each reduced gradient bitwise the plain codec's
+    decode(encode(g)), no plain codec on a CUDA tensor."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import flatten_state
+    from repro_torch.configs import CONFIGS, reduced
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.distributed import MeshInfo, collectives
+    from repro_torch.kernels.counts import TRAIN_PLAIN, PlainCalls
+    from repro_torch.kernels.posit_codec import (posit_decode_torch,
+                                                 posit_encode_torch)
+    from repro_torch.models import build_model
+    from repro_torch.train.step import init_train_state, make_train_step
+    cfg = reduced(CONFIGS["qwen3-8b"])
+    policy = QuantPolicy(grad_allreduce="posit16")
+    fmt = policy.fmt("grad_allreduce")
+    minfo = MeshInfo((dev,), ("pod", "data", "model"), (1, 1, 1),
+                     dp_axes=("pod", "data"))
+    model = build_model(cfg, policy, device=dev)
+    state = init_train_state(model.init(
+        torch.Generator(device=dev).manual_seed(SEED)))
+    n_leaves = len(flatten_state(state["params"])[0])
+    batch = TokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=32, global_batch=4)).batch_at(0)
+    seen = []
+    real = collectives.posit_all_reduce
+
+    def captured(g, f, group=None):
+        out = real(g, f, group)
+        seen.append((g.detach().clone(), out))
+        return out
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    collectives.posit_all_reduce = captured
+    try:
+        step = make_train_step(model, minfo, policy)
+        for c in counters:
+            c.launches = 0
+        with PlainCalls(TRAIN_PLAIN) as plain:
+            state, met = step(state, batch)
+            loss = float(met["loss"])
+        launches = {c.__name__: c.launches for c in counters if c.launches}
+    finally:
+        collectives.posit_all_reduce = real
+        dist.destroy_process_group()
+    want = {"posit_encode": 2 * n_leaves, "posit_decode": 2 * n_leaves}
+    if launches != want or any(plain.calls.values()) or \
+            len(seen) != n_leaves or not math.isfinite(loss):
+        raise AssertionError(f"pod branch: launches {launches} (predicted "
+                             f"{want}), {len(seen)} all-reduces of "
+                             f"{n_leaves} leaves, plain {plain.calls}, loss "
+                             f"{loss}")
+    for g, out in seen:
+        ref = posit_decode_torch(posit_encode_torch(g.cpu(), fmt), fmt,
+                                 torch.float32)
+        if not bits_equal(out.cpu(), ref):
+            raise AssertionError("pod branch: a reduced gradient is not the "
+                                 "plain codec's decode(encode(g))")
+    log(f"  pod-compressed branch, world size 1 on NCCL: {n_leaves} gradient"
+        f" leaves through posit_all_reduce, {launches} (2 encodes and 2 "
+        f"decodes a leaf, as predicted), each bitwise the plain codec's "
+        f"decode(encode(g)); loss {loss:.4f} ({card})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4468,6 +5087,16 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
     log(f"  phase 9 in {time.perf_counter() - t0:.1f} s ({card})")
+
+    phase(f"phase 10: training on the card, {TRAIN_ARCH} at full width")
+    t0 = time.perf_counter()
+    row, _ = run_train_full(dev, counters, card)
+    extra.append(row)
+    train_reduced_on_card_and_cpu(dev, card)
+    train_steps_reduced(dev, counters, card)
+    train_pod_branch(dev, counters, card)
+    torch.cuda.empty_cache()
+    log(f"  phase 10 in {time.perf_counter() - t0:.1f} s ({card})")
     phase("done")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

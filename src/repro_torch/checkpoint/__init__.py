@@ -1,1 +1,2 @@
-from .manager import CheckpointManager, flatten_state  # noqa: F401
+from .manager import (CheckpointManager, flatten_state,  # noqa: F401
+                      unflatten_state)

@@ -52,7 +52,9 @@ def flatten_state(state: Any) -> Tuple[List[Any], str]:
     return leaves, walk(state)
 
 
-def _unflatten(like: Any, leaves: List[Any]) -> Any:
+def unflatten_state(like: Any, leaves: List[Any]) -> Any:
+    """``like``'s structure with ``leaves`` (in JAX's pytree order, as
+    ``flatten_state`` gives them) in its places."""
     it = iter(leaves)
 
     def build(x):
@@ -203,4 +205,4 @@ class CheckpointManager:
                 else:
                     dtype = np.asarray(like).dtype
                     leaves.append(a.cpu().numpy().astype(dtype, copy=False))
-        return _unflatten(state_like, leaves)
+        return unflatten_state(state_like, leaves)

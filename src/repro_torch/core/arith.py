@@ -116,7 +116,10 @@ def backend_overrides(fused: str = None, round_backend: str = None,
         set_quire(prev_q)
 
 
-def _round_posit_dispatch(x: torch.Tensor, fmt: PositFormat) -> torch.Tensor:
+def round_posit(x: torch.Tensor, fmt: PositFormat) -> torch.Tensor:
+    """Nearest posit values of ``x`` (f32 or f64) as the round backend
+    selects: ``Arith.rnd``'s and ``core.quant.fake_quant``'s one dispatch
+    (B1's kernel for a CUDA tensor under ``auto``)."""
     backend = get_round_backend(x)
     if backend == "kernel":
         return posit_round(x.contiguous(), fmt)
@@ -168,7 +171,7 @@ class Arith:
         if self.exact and x.dtype == torch.float32:
             return x
         if self.is_posit:
-            return _round_posit_dispatch(x, self.fmt)
+            return round_posit(x, self.fmt)
         return round_to_float(x, self.fmt)
 
     # -- elementary ops (each correctly rounded to the format) ----------------

@@ -6,7 +6,17 @@ at compute time, through the codec kernel's wrapper (``posit_decode``: the
 CUDA kernel for a tensor on the card, its plain version on the CPU).
 ``quantize_params`` encodes a whole parameter tree through ``posit_encode``
 with the reference's leaf rules.  ``fake_quant`` rounds onto any format's
-lattice (posit or narrow IEEE) with a straight-through gradient.
+lattice (posit or narrow IEEE) with a straight-through gradient: the QAT
+round of training's weights and the block-boundary activation round.
+
+A posit ``fake_quant`` goes through ``Arith.rnd``'s dispatch
+(``core.arith.round_posit``): on a CUDA tensor the elementwise round
+kernel (B1, ``kernels/posit_round.py::posit_round``), on a CPU one its
+plain version.  The reference's ``fake_quant`` rounds in plain ``jnp``,
+not through its Pallas kernel; B1 computes the same bits (``chip_smoke.py``
+phase 2 holds it bitwise), so the port's training path runs on a
+hand-written kernel.  A bf16 or f16 input is rounded as f32 (exact) and
+cast back, which is what the plain round computes too.
 """
 from __future__ import annotations
 
@@ -17,9 +27,9 @@ import torch
 
 from repro_torch.kernels.posit_codec import posit_decode, posit_encode
 
+from .arith import round_posit
 from .floatsim import round_to_float
 from .formats import PositFormat, get_format
-from .posit import round_to_posit
 
 
 @dataclasses.dataclass
@@ -79,11 +89,16 @@ def dequantize(t: PositTensor, dtype: torch.dtype = torch.float32
 # ---------------------------------------------------------------------------
 
 class _FakeQuant(torch.autograd.Function):
+    """The round forward; the identity backward (straight-through), as the
+    reference's ``custom_vjp``."""
+
     @staticmethod
     def forward(ctx, x, fmt):
-        if isinstance(fmt, PositFormat):
-            return round_to_posit(x, fmt, dtype=x.dtype)
-        return round_to_float(x, fmt)
+        if not isinstance(fmt, PositFormat):
+            return round_to_float(x, fmt)
+        if x.dtype in (torch.float32, torch.float64):
+            return round_posit(x, fmt)
+        return round_posit(x.to(torch.float32), fmt).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):

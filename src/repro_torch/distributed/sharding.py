@@ -22,7 +22,9 @@ rounded matmul's split over K follows K and N alone
 
 The reference's production-mesh half (``logical_spec``, ``shard_leaf``,
 ``replicated``) serves the 256/512-chip dry run and lands with it
-(ROADMAP.md, queue A item A5).
+(ROADMAP.md, queue A item A5b).  ``MeshInfo.pod_axis`` is the training
+step's: a mesh with a ``pod`` axis takes its posit-compressed cross-pod
+gradient branch.
 """
 from __future__ import annotations
 
@@ -64,6 +66,12 @@ class MeshInfo:
     @property
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def pod_axis(self):
+        """``"pod"`` where the mesh has that axis (the training step's
+        posit-compressed cross-pod gradients), else None."""
+        return "pod" if "pod" in self.axis_names else None
 
     @property
     def dp_size(self) -> int:

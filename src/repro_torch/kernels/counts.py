@@ -4,12 +4,13 @@ of the stream kernels' plain versions that were given a CUDA tensor.
 Every kernel wrapper counts its launches in ``<wrapper>.launches``
 (nowhere else).  ``launch_counts`` reads them all and ``reset_launch_counts``
 sets them to 0.  ``PlainCalls`` counts, while entered, the calls of a
-path's plain versions (``STREAM_PLAIN``, ``SERVE_PLAIN``) given a tensor on
-the card: on the card each of them must stay 0, so a kernel that quietly
-fell back to its plain version shows.  ``refuse_plain_on_card`` makes them
-raise instead, for a process of its own (a spawned pool worker, whose
-launch counts are all it reports); nothing in the library calls it.  The ingest worker pool ships each
-worker process's launch counts (``repro_torch.ingest.workers``).
+path's plain versions (``STREAM_PLAIN``, ``SERVE_PLAIN``, ``TRAIN_PLAIN``)
+given a tensor on the card: on the card each of them must stay 0, so a
+kernel that quietly fell back to its plain version shows.
+``refuse_plain_on_card`` makes the stream ones raise instead, for a process
+of its own (a spawned pool worker, whose launch counts are all it
+reports); nothing in the library calls it.  The ingest worker pool ships
+each worker process's launch counts (``repro_torch.ingest.workers``).
 """
 from __future__ import annotations
 
@@ -49,6 +50,12 @@ SERVE_PLAIN = (("repro_torch.kernels.posit_codec", "posit_decode_torch"),
                ("repro_torch.kernels.posit_codec", "posit_kv_append_torch"),
                ("repro_torch.kernels.posit_kv_attention",
                 "posit_kv_attention_torch"))
+
+
+# training: ``fake_quant``'s posit round goes through ``core.arith``'s
+# dispatch (``round_to_posit``, a stream site), the pod-compressed
+# gradients through the codec (serve sites)
+TRAIN_PLAIN = STREAM_PLAIN + SERVE_PLAIN
 
 
 class PlainCalls:

@@ -4,7 +4,7 @@ touches no device.
 
 The reference's production meshes (``make_production_mesh``,
 ``make_mesh_info``: 256 and 512 chips) serve its dry run and land with it
-(ROADMAP.md, queue A item A5).
+(ROADMAP.md, queue A item A5b).
 """
 from __future__ import annotations
 

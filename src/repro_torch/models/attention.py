@@ -1,6 +1,6 @@
 """Attention: GQA/MQA with qk-norm, bias, softcap and local windows, and
 the posit-quantized KV cache for decode — the counterpart of
-``repro.models.attention`` for serving.
+``repro.models.attention``.
 
 Every posit write of the cache goes through the KV-append kernel's
 wrapper (one launch a layer for K, V and every row) and every posit read
@@ -9,9 +9,11 @@ through the decode kernel's; a decode step whose cache qualifies
 which decodes K/V inside the kernel.  A prefill of more than 1024
 positions without ``lengths`` attends through the blocked online softmax
 (``chunked_attention``), as the reference's does.  ``attention_train`` is
-the full-sequence attention as a forward pass (the encoder's; gradients
-wait for queue A item A5, ROADMAP.md), and ``cross_attention`` attends a
-decoder's queries over an encoder's precomputed K/V.
+the full-sequence attention of training and of the encoder, plain or
+blocked past 1024 positions; ``torch.autograd`` differentiates both (the
+blocked one through its Python loops, every block's (max, denominator,
+output) carries kept for the backward), and ``cross_attention``, which
+attends a decoder's queries over an encoder's K/V.
 """
 from __future__ import annotations
 

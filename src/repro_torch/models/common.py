@@ -1,6 +1,7 @@
 """Shared building blocks of the decoder: parameter specs and their
-initializer, norms, rotary embeddings, token embedding and head, and the
-dense projection — the counterpart of ``repro.models.common``.
+initializer, norms, rotary embeddings, token embedding and head, the
+dense projection and the training loss — the counterpart of
+``repro.models.common``.
 
 Parameters are a tree of nested dicts, with the reference's names and
 shapes: per-layer leaves are stacked along a leading layer axis.  Posit
@@ -16,6 +17,7 @@ import math
 from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.quant import PositTensor
 
@@ -102,8 +104,31 @@ def tree_map(fn, tree):
 
 
 def unstack(tree, n: int):
-    """Per-layer views of a layer-stacked tree."""
-    return [tree_map(lambda t, i=i: t[i], tree) for i in range(n)]
+    """Per-layer views of a layer-stacked tree.  A tensor leaf is cut by
+    ``unbind``, so under autograd one backward stacks every layer's
+    gradient (``t[i]`` would zero-fill and add a whole stack per layer)."""
+    def cut(t):
+        return t.unbind(0) if isinstance(t, torch.Tensor) else [
+            t[i] for i in range(n)]
+
+    def pick(tree, i):
+        if isinstance(tree, dict):
+            return {k: pick(v, i) for k, v in tree.items()}
+        return tree[i]
+
+    cols = tree_map(cut, tree)
+    return [pick(cols, i) for i in range(n)]
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``; with ``remat``, under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint``): only the inputs are kept, and the
+    forward runs again in the backward.  No block draws random numbers,
+    so no RNG state is stashed."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 def to_device(tree, device):
@@ -176,6 +201,22 @@ def unembed(params, x: torch.Tensor, final_cap: float = 0.0) -> torch.Tensor:
     w = wval(params["table"], x.dtype).T
     logits = torch.matmul(x.to(torch.float32), w.to(torch.float32))
     return softcap(logits, final_cap)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab: int) -> torch.Tensor:
+    """Mean CE over the tokens, the padded vocab ids masked out of the f32
+    logits (to -1e30, as the reference's).  Where the table has no padded
+    rows the mask would change nothing, and its copy of the logits is
+    skipped (gemma2-2b: 2.1 GB of f32 logits at B = 4, S = 512)."""
+    logits = logits.to(torch.float32)
+    V = logits.shape[-1]
+    if V > vocab:
+        mask = torch.arange(V, device=logits.device) < vocab
+        logits = torch.where(mask, logits, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
 
 
 def wval(leaf, dtype: torch.dtype = COMPUTE_DTYPE) -> torch.Tensor:

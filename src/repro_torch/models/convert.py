@@ -5,6 +5,8 @@ leaves given as any object that has ``bits``, ``fmt`` (with ``n`` and
 become the port's tree of tensors and ``PositTensor`` leaves on one
 device.  The counterpart of ``apps/forest.py::forest_from_arrays`` for the
 language models; nothing here imports the other package.
+``train_state_from_jax`` carries a whole training state (parameters,
+AdamW moments and step), so both packages can step from the same state.
 """
 from __future__ import annotations
 
@@ -33,3 +35,15 @@ def params_from_jax(tree, device):
                            PositFormat(tree.fmt.n, tree.fmt.es),
                            None if scale is None else _tensor(scale, device))
     return _tensor(tree, device)
+
+
+def train_state_from_jax(state, device):
+    """The port's training state on ``device`` for the reference's
+    ``{"params", "opt": {"m", "v", "step"}}`` (as numpy, or anything
+    ``np.asarray`` takes): f32 trees and an int32 0-d step."""
+    opt = state["opt"]
+    return {"params": params_from_jax(state["params"], device),
+            "opt": {"m": params_from_jax(opt["m"], device),
+                    "v": params_from_jax(opt["v"], device),
+                    "step": torch.tensor(int(np.asarray(opt["step"])),
+                                         dtype=torch.int32, device=device)}}

@@ -1,4 +1,4 @@
-"""Encoder-decoder LM (the seamless-m4t family) — the serving half of
+"""Encoder-decoder LM (the seamless-m4t family) — the counterpart of
 ``repro.models.encdec.EncDecLM``.
 
 The audio frontend is a stub: the caller gives precomputed frame
@@ -14,8 +14,14 @@ parameters are views of the layer-stacked tree, whose names and shapes are
 the reference's (``embed``, ``encoder`` stacked over ``enc_layers``,
 ``decoder`` stacked over ``n_layers``, ``enc_ln``, ``final_ln``).  The
 cross K/V are a list of per-layer (K, V) pairs, where the reference
-stacks them.  Training (``loss``) waits for a later slice (ROADMAP.md,
-queue A item A5).
+stacks them.
+
+``loss`` is the training forward, differentiable by ``torch.autograd``:
+the encoder, then each decoder layer's causal self-attention
+(``attention_train``), cross-attention over its ``_cross_kv`` of the
+encoder's output, and FFN; the mean CE of each next token.  Where the
+config asks for remat, every encoder and decoder layer runs under
+``torch.utils.checkpoint``.
 """
 from __future__ import annotations
 
@@ -29,8 +35,9 @@ from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.quant import PositTensor, quantize
 
 from . import attention as attn
-from .common import (COMPUTE_DTYPE, dense, embed, init_embedding,
-                     materialize, param, rms_norm, unembed, unstack)
+from .common import (COMPUTE_DTYPE, cross_entropy, dense, embed,
+                     init_embedding, materialize, param, remat_call,
+                     rms_norm, unembed, unstack)
 from .mlp import ffn, init_ffn
 
 
@@ -73,16 +80,20 @@ class EncDecLM:
         }
 
     # -- encoder ----------------------------------------------------------
-    def encode(self, params, frames) -> torch.Tensor:
-        """The encoder's output (B, S_src, d) bf16 for f32 ``frames``."""
+    def encode(self, params, frames, remat: bool = False) -> torch.Tensor:
+        """The encoder's output (B, S_src, d) bf16 for f32 ``frames``; with
+        ``remat``, each layer under ``torch.utils.checkpoint``."""
         cfg = self.cfg
         x = torch.as_tensor(frames, device=self.device).to(COMPUTE_DTYPE)
         for lp in unstack(params["encoder"], cfg.enc_layers):
-            h = rms_norm(x, lp["ln1"])
-            x = x + attn.attention_train(lp["attn"], h, cfg, causal=False)
-            h = rms_norm(x, lp["ln2"])
-            x = x + ffn(lp["ffn"], h, cfg)
+            x = remat_call(remat, self._enc_layer, lp, x)
         return rms_norm(x, params["enc_ln"])
+
+    def _enc_layer(self, lp, x):
+        h = rms_norm(x, lp["ln1"])
+        x = x + attn.attention_train(lp["attn"], h, self.cfg, causal=False)
+        h = rms_norm(x, lp["ln2"])
+        return x + ffn(lp["ffn"], h, self.cfg)
 
     def _cross_kv(self, lp, enc_out):
         """Decoder layer ``lp``'s cross K and V (B, S_src, KV, D) of the
@@ -94,10 +105,30 @@ class EncDecLM:
         v = dense(lp["cross_attn"]["wv"], enc_out).reshape(B, S, KV, hd)
         return k, v
 
+    # -- training ---------------------------------------------------------
+    def _dec_layer_train(self, lp, x, enc_out):
+        cfg = self.cfg
+        h = rms_norm(x, lp["ln1"])
+        x = x + attn.attention_train(lp["self_attn"], h, cfg)
+        h = rms_norm(x, lp["ln_x"])
+        k, v = self._cross_kv(lp, enc_out)
+        x = x + attn.cross_attention(lp["cross_attn"], h, cfg, k, v)
+        h = rms_norm(x, lp["ln2"])
+        return x + ffn(lp["ffn"], h, cfg)
+
     def loss(self, params, batch):
-        raise NotImplementedError("EncDecLM.loss waits for the training "
-                                  "slice of the port (ROADMAP.md, queue A "
-                                  "item A5)")
+        """(ce, {"ce"}): the mean CE of each next token of
+        ``batch["tokens"]`` given ``batch["frames"]``, f32 scalars."""
+        cfg = self.cfg
+        enc_out = self.encode(params, batch["frames"], remat=cfg.remat)
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        x = embed(params["embed"], tokens.long())
+        for lp in unstack(params["decoder"], cfg.n_layers):
+            x = remat_call(cfg.remat, self._dec_layer_train, lp, x, enc_out)
+        x = rms_norm(x, params["final_ln"])
+        logits = unembed(params["embed"], x[:, :-1])
+        ce = cross_entropy(logits, tokens[:, 1:], cfg.vocab)
+        return ce, {"ce": ce}
 
     # -- serving ----------------------------------------------------------
     def init_cache(self, batch: int, capacity: int):

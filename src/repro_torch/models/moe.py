@@ -22,6 +22,10 @@ same bits on every call:
   kept expert outputs onto zeros in ascending expert order, one add per
   rank of the top-k — no atomics, so the f32 sum's order is fixed.
 
+The aux loss is differentiable (through the router's softmax, as the
+reference's), and so is the output, through the gate weights and the
+expert products; training sums the aux over the layers.
+
 The expert weights are decoded whole (``wval``, the codec kernel's decode
 for posit leaves) once per call, as the reference decodes them.
 """
@@ -89,8 +93,11 @@ def select(assign: torch.Tensor, gatev: torch.Tensor, n_experts: int,
 
 def _expert_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(E, C, i)·(E, i, o) of bf16 operands, accumulated and returned in
-    f32 (the reference's ``preferred_element_type=float32``)."""
-    if a.is_cuda:
+    f32 (the reference's ``preferred_element_type=float32``).  The card's
+    ``bmm(..., out_dtype=)`` has no derivative, so a product that autograd
+    records takes the operands upcast to f32 (exact) there too."""
+    if a.is_cuda and not (torch.is_grad_enabled()
+                          and (a.requires_grad or w.requires_grad)):
         return torch.bmm(a, w, out_dtype=torch.float32)
     return torch.bmm(a.to(torch.float32), w.to(torch.float32))
 

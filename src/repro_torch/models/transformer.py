@@ -1,5 +1,5 @@
 """Decoder-only LM for the ``dense`` (qwen, gemma2, granite), ``moe``
-(granite-moe, dbrx) and ``vlm`` (internvl2) families — the serving half of
+(granite-moe, dbrx) and ``vlm`` (internvl2) families — the counterpart of
 ``repro.models.transformer.DecoderLM``.
 
 A Python loop over the layers replaces ``lax.scan``; the per-layer
@@ -10,8 +10,16 @@ so the plain decode route is exercised too.  A ``moe`` layer runs
 as the reference's does.  A ``vlm`` model's ``vision_stub`` frontend puts
 the caller's precomputed patch embeddings (``batch["frontend"]``) before
 the prompt's tokens; they take cache positions, and a decode step's
-positions follow from the cache length.  Training (``loss``) waits for a
-later slice (ROADMAP.md, queue A item A5).
+positions follow from the cache length.
+
+``loss`` is the training forward, differentiable by ``torch.autograd``:
+every layer through ``attention_train`` (the blocked online softmax past
+1024 positions), the MoE layers' Switch aux loss summed over the layers
+and added as ``0.01 * aux / n_layers``, the ``vlm`` patch rows dropped
+before the unembedding, and the CE of each next token.  Where the config
+asks for remat, each layer runs under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint``): its activations are recomputed in the
+backward, an activation round (``QuantPolicy.activations``) included.
 """
 from __future__ import annotations
 
@@ -25,8 +33,9 @@ from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.quant import fake_quant
 
 from . import attention as attn
-from .common import (COMPUTE_DTYPE, embed, init_embedding, materialize,
-                     param, rms_norm, unembed, unstack)
+from .common import (COMPUTE_DTYPE, cross_entropy, embed, init_embedding,
+                     materialize, param, remat_call, rms_norm, unembed,
+                     unstack)
 from .mlp import ffn, init_ffn
 from .moe import init_moe, moe_ffn
 
@@ -89,28 +98,36 @@ class DecoderLM:
 
     # -- blocks -----------------------------------------------------------
     def _block(self, lp, x, attend):
-        """One layer: ``attend(h) -> (h, cache)`` is the prefill or the
-        decode attention of the normed residual stream."""
+        """One layer: ``attend(h) -> (h, cache)`` is the training, prefill
+        or decode attention of the normed residual stream.  Returns (x,
+        cache, the MoE layer's f32 aux loss; None for a dense FFN)."""
         h, cache = attend(rms_norm(x, lp["ln1"]))
         if "ln1_post" in lp:
             h = rms_norm(h, lp["ln1_post"])
         x = x + h
         h = rms_norm(x, lp["ln2"])
+        aux = None
         if "moe" in lp:
-            h, _ = moe_ffn(lp["moe"], h, self.cfg)
+            h, aux = moe_ffn(lp["moe"], h, self.cfg)
         else:
             h = ffn(lp["ffn"], h, self.cfg)
         if "ln2_post" in lp:
             h = rms_norm(h, lp["ln2_post"])
-        return self._act_quant(x + h), cache
+        return self._act_quant(x + h), cache, aux
+
+    def _block_train(self, lp, x, window):
+        x, _, aux = self._block(lp, x, lambda h: (attn.attention_train(
+            lp["attn"], h, self.cfg, window=window), None))
+        return x, aux
 
     def _block_decode(self, lp, x, window, cache):
         return self._block(lp, x, lambda h: attn.attention_decode(
-            lp["attn"], h, self.cfg, cache, window=window))
+            lp["attn"], h, self.cfg, cache, window=window))[:2]
 
     def _block_prefill(self, lp, x, window, cache, lengths):
         return self._block(lp, x, lambda h: attn.attention_prefill(
-            lp["attn"], h, self.cfg, cache, window=window, lengths=lengths))
+            lp["attn"], h, self.cfg, cache, window=window,
+            lengths=lengths))[:2]
 
     def _act_quant(self, x):
         """Block-boundary activation rounding (QuantPolicy.activations):
@@ -149,10 +166,30 @@ class DecoderLM:
             lengths.append(c.length)
         return x, attn.KVCache(caches.k, caches.v, torch.stack(lengths))
 
+    # -- training -----------------------------------------------------------
+    def _backbone(self, params, x):
+        """Every layer (under remat where the config asks), then the final
+        norm; returns (x, the layers' aux losses summed)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp, window in zip(unstack(params["layers"], self.cfg.n_layers),
+                              self._windows()):
+            x, a = remat_call(self.cfg.remat, self._block_train, lp, x,
+                              window)
+            if a is not None:     # a dense layer adds the reference's 0
+                aux = aux + a
+        return rms_norm(x, params["final_ln"]), aux
+
     def loss(self, params, batch):
-        raise NotImplementedError("DecoderLM.loss waits for the training "
-                                  "slice of the port (ROADMAP.md, queue A "
-                                  "item A5)")
+        """(ce + 0.01 · aux / n_layers, {"ce", "aux"}): the mean CE of each
+        next token, f32 scalars on the model's device."""
+        cfg = self.cfg
+        x, aux = self._backbone(params, self._inputs_embed(params, batch))
+        if cfg.frontend == "vision_stub":
+            x = x[:, cfg.frontend_len:]
+        logits = unembed(params["embed"], x[:, :-1], cfg.final_softcap)
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        ce = cross_entropy(logits, tokens[:, 1:], cfg.vocab)
+        return ce + 0.01 * aux / max(cfg.n_layers, 1), {"ce": ce, "aux": aux}
 
     # -- serving ----------------------------------------------------------
     def init_cache(self, batch: int, capacity: int, per_row: bool = False):

@@ -1,4 +1,4 @@
-"""xLSTM LM: groups of 7 mLSTM + 1 sLSTM blocks — the serving half of
+"""xLSTM LM: groups of 7 mLSTM + 1 sLSTM blocks — the counterpart of
 ``repro.models.xlstm_model.XLSTMLM``.
 
 The parameters keep the reference's names and shapes: ``groups`` holds
@@ -6,8 +6,13 @@ each group's ``mlstm`` stack (n_groups, 7, ...) and ``slstm`` block
 (n_groups, ...); Python loops over the groups and layers replace the
 two-level ``lax.scan``.  The family has no KV cache: the decode state is
 ``{"mlstm": [[MLSTMCache] * 7] * n_groups, "slstm": [SLSTMCache] *
-n_groups}``, lists where the reference stacks.  Training (``loss``) waits
-for a later slice (ROADMAP.md, queue A item A5).
+n_groups}``, lists where the reference stacks.
+
+``loss`` is the training forward, differentiable by ``torch.autograd``:
+the chunked mLSTM (``mlstm_train``, each block under
+``torch.utils.checkpoint`` where the config asks for remat) and the
+sLSTM's Python loop over time (``slstm_train``), then the mean CE of each
+next token.
 """
 from __future__ import annotations
 
@@ -19,11 +24,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.policy import QuantPolicy
 
-from .common import (embed, init_embedding, materialize, param, rms_norm,
-                     stacked, unembed, unstack)
+from .common import (cross_entropy, embed, init_embedding, materialize,
+                     param, remat_call, rms_norm, stacked, unembed, unstack)
 from .xlstm import (init_mlstm, init_mlstm_cache, init_slstm,
                     init_slstm_cache, mlstm_decode, mlstm_forward,
-                    slstm_decode, slstm_forward)
+                    mlstm_train, slstm_decode, slstm_forward, slstm_train)
 
 GROUP = 8  # 7 mLSTM + 1 sLSTM per group
 
@@ -63,9 +68,17 @@ class XLSTMLM:
         }
 
     def loss(self, params, batch):
-        raise NotImplementedError("XLSTMLM.loss waits for the training "
-                                  "slice of the port (ROADMAP.md, queue A "
-                                  "item A5)")
+        """(ce, {"ce"}): the mean CE of each next token, f32 scalars."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        x, _ = self._run(
+            params, embed(params["embed"], tokens.long()),
+            lambda p, h, g, j: (remat_call(cfg.remat, mlstm_train, p, h,
+                                           cfg), None),
+            lambda p, h, g: (slstm_train(p, h, cfg), None))
+        logits = unembed(params["embed"], x[:, :-1])
+        ce = cross_entropy(logits, tokens[:, 1:], cfg.vocab)
+        return ce, {"ce": ce}
 
     # -- forward ----------------------------------------------------------
     def _run(self, params, x, mlstm, slstm):

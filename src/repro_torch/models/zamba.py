@@ -1,6 +1,6 @@
 """Zamba2-style hybrid: a Mamba2 backbone and one *shared* attention + MLP
 block invoked every ``shared_attn_every`` layers (its weights reused, a
-gate per group) — the serving half of ``repro.models.zamba.ZambaLM``.
+gate per group) — the counterpart of ``repro.models.zamba.ZambaLM``.
 
 For n_layers = 81, every = 6: 13 groups of 6 mamba layers, each followed
 by the shared block, then a 3-layer mamba tail.  The parameters keep the
@@ -16,8 +16,15 @@ again at each of its calls, as ``dense`` decodes every weight it uses.
 The decode state is ``{"ssm": [...], "kv": KVCache}``: one ``SSMCache``
 per mamba layer in a list, where the reference stacks them, and the
 groups' KV caches stacked along a leading axis, as the reference's.
-Training (``loss``) waits for a later slice (ROADMAP.md, queue A item
-A5).
+
+``loss`` is the training forward, differentiable by ``torch.autograd``:
+each group's mamba layers (``ssm_train``), then the shared block
+(``attention_train`` + MLP, the group's gate); then the tail and the mean
+CE of each next token.  The shared block's one tree of weights is used by
+every group, so autograd sums its 13 calls' gradients (full width) into
+one gradient a leaf.  Where the config asks for remat, each mamba layer
+and each group runs under ``torch.utils.checkpoint``, as the reference
+nests ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -30,10 +37,11 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.policy import QuantPolicy
 
 from . import attention as attn
-from .common import (embed, init_embedding, materialize, param, rms_norm,
-                     stacked, unembed, unstack)
+from .common import (cross_entropy, embed, init_embedding, materialize,
+                     param, remat_call, rms_norm, stacked, unembed, unstack)
 from .mlp import ffn, init_ffn
-from .ssm import init_ssm, init_ssm_cache, ssm_decode, ssm_prefill
+from .ssm import (init_ssm, init_ssm_cache, ssm_decode, ssm_prefill,
+                  ssm_train)
 
 
 class ZambaLM:
@@ -76,10 +84,34 @@ class ZambaLM:
                                          self.device)
         return params
 
+    # -- training ---------------------------------------------------------
+    def _mamba_layer_train(self, lp, x):
+        return x + ssm_train(lp["ssm"], rms_norm(x, lp["ln"]), self.cfg)
+
+    def _mamba_train(self, layers, n, x):
+        for lp in unstack(layers, n):
+            x = remat_call(self.cfg.remat, self._mamba_layer_train, lp, x)
+        return x
+
+    def _group_train(self, gp, sp, x):
+        x = self._mamba_train(gp["mamba"], self.every, x)
+        return self._shared(sp, x, gp["gate"], lambda h: (
+            attn.attention_train(sp["attn"], h, self.cfg), None))[0]
+
     def loss(self, params, batch):
-        raise NotImplementedError("ZambaLM.loss waits for the training "
-                                  "slice of the port (ROADMAP.md, queue A "
-                                  "item A5)")
+        """(ce, {"ce"}): the mean CE of each next token, f32 scalars."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        x = embed(params["embed"], tokens.long())
+        for gp in unstack(params["groups"], self.n_groups):
+            x = remat_call(cfg.remat, self._group_train, gp,
+                           params["shared"], x)
+        if self.tail:
+            x = self._mamba_train(params["tail"], self.tail, x)
+        x = rms_norm(x, params["final_ln"])
+        logits = unembed(params["embed"], x[:, :-1])
+        ce = cross_entropy(logits, tokens[:, 1:], cfg.vocab)
+        return ce, {"ce": ce}
 
     # -- blocks -----------------------------------------------------------
     def _shared(self, sp, x, gate, attend):

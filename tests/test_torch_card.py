@@ -27,7 +27,11 @@ and the KV append at zamba2-7b's shared attention (KV = 32, G = 1, D =
 the ingest
 worker pool's workers on the card (a spawned worker refusing the stream
 kernels' plain versions on CUDA tensors), their digests equal to the
-in-process run.
+in-process run; ``fake_quant`` on a CUDA tensor through the round kernel
+(one launch, the plain round's bits), a plain round arriving through it
+caught by ``PlainCalls(TRAIN_PLAIN)`` and ``refuse_plain_on_card``, and
+one posit16 QAT train step of reduced gemma2-2b (one round launch per
+rounded leaf, the loss near the CPU's).
 """
 import numpy as np
 import pytest
@@ -987,3 +991,87 @@ def test_refuse_plain_on_card_raises_on_a_cuda_tensor(dev, monkeypatch):
                        posit_round_torch(x, fmt))
     with pytest.raises(AssertionError, match="CUDA tensor"):
         round_module.posit_round_torch(x.to(dev), fmt)
+
+
+def test_fake_quant_on_the_card_launches_the_round_kernel(dev):
+    """``fake_quant`` on a CUDA tensor goes through B1: one launch, the
+    plain round's bits; a bf16 input rounded as f32 and cast back, the
+    plain route's bits too; the gradient straight through."""
+    from repro_torch.core.quant import fake_quant
+    fmt = get_format("posit16")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(4096, 33, generator=gen, device=dev) * 8
+    posit_round.launches = 0
+    got = fake_quant(x, "posit16")
+    assert posit_round.launches == 1
+    assert _equal_bits(got, posit_round_torch(x.cpu(), fmt).to(dev))
+    xb = x.to(torch.bfloat16)
+    got = fake_quant(xb, "posit16")
+    assert posit_round.launches == 2 and got.dtype == torch.bfloat16
+    want = posit_round_torch(xb.cpu().float(), fmt).to(torch.bfloat16)
+    assert torch.equal(got.view(torch.int16).cpu(), want.view(torch.int16))
+    xg = x.clone().requires_grad_()
+    (g,) = torch.autograd.grad(torch.sum(fake_quant(xg, "posit8") * 3.0), xg)
+    assert torch.equal(g, torch.full_like(x, 3.0))
+
+
+def test_plain_round_through_fake_quant_is_caught_on_the_card(dev,
+                                                              monkeypatch):
+    """A plain round of a CUDA tensor that arrives through ``fake_quant``
+    (the ``torch`` backend forced) shows in ``PlainCalls(TRAIN_PLAIN)`` and
+    raises under ``refuse_plain_on_card()``."""
+    import importlib
+
+    from repro_torch.core.quant import fake_quant
+    from repro_torch.kernels.counts import (STREAM_PLAIN, TRAIN_PLAIN,
+                                            PlainCalls, refuse_plain_on_card)
+    x = torch.randn(256, device=dev)
+    with backend_overrides(round_backend="torch"):
+        with PlainCalls(TRAIN_PLAIN) as plain:
+            fake_quant(x, "posit16")
+        assert plain.calls["repro_torch.core.arith.round_to_posit"] == 1
+        for m, n in STREAM_PLAIN:      # restored after the test
+            mod = importlib.import_module(m)
+            monkeypatch.setattr(mod, n, getattr(mod, n))
+        refuse_plain_on_card()
+        fake_quant(x.cpu(), "posit16")
+        with pytest.raises(AssertionError, match="CUDA tensor"):
+            fake_quant(x, "posit16")
+
+
+def test_qat_train_step_on_the_card(dev):
+    """One posit16 QAT step of reduced gemma2-2b on the card: one round
+    launch per f32 leaf of two or more dims, no plain round on a CUDA
+    tensor, finite metrics, and the loss near the same step on the CPU
+    from the same weights."""
+    from repro_torch.checkpoint import flatten_state
+    from repro_torch.configs import CONFIGS, reduced
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels.counts import TRAIN_PLAIN, PlainCalls
+    from repro_torch.launch.mesh import make_debug_mesh_info
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.train.step import init_train_state, make_train_step
+    cfg = reduced(CONFIGS["gemma2-2b"])
+    policy = QuantPolicy(weights="posit16")
+    batch = TokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=32, global_batch=4)).batch_at(1)
+    weights = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    losses = {}
+    for d in (dev, torch.device("cpu")):
+        model = build_model(cfg, policy, device=d)
+        params = tree_map(lambda t: t.to(d, copy=True), weights)
+        state = init_train_state(params)
+        step = make_train_step(model, make_debug_mesh_info(device=d), policy)
+        rounded = sum(t.dim() >= 2 for t in flatten_state(params)[0])
+        posit_round.launches = 0
+        with PlainCalls(TRAIN_PLAIN) as plain:
+            state, met = step(state, batch)
+        if d.type == "cuda":
+            assert posit_round.launches == rounded
+            assert not any(plain.calls.values()), plain.calls
+        assert all(torch.isfinite(v).all() for v in met.values())
+        losses[d.type] = float(met["loss"])
+    assert abs(losses["cuda"] - losses["cpu"]) < 2e-2

@@ -3,14 +3,15 @@
 * With ``jax`` and ``repro`` blocked, ``repro_torch`` and every sub-module
   import, and so do the modules ``chip_smoke.py`` imports and the worker
   pool's, the restart policy's, the MoE layer's, the encoder-decoder's,
-  the fleet mesh's, the collectives' and the checkpoint manager's public
-  names.
+  the fleet mesh's, the collectives', the checkpoint manager's and the
+  training path's (``train``, ``optim``, ``data.tokens``,
+  ``launch.train``) public names.
 * No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
   ``jax`` or ``repro`` (an AST scan).
 * Entry points (the stream engine and window cores, ``build_model``,
   ``ServingEngine``, ``python -m repro_torch.launch.serve``, the
-  quickstart, the format study, the worker pool, the fleet meshes and the
-  re-mesh) resolve
+  quickstart, the format study, the worker pool, the fleet meshes, the
+  re-mesh and ``launch.train.train``) resolve
   ``device=None`` to the card and raise without CUDA; ``device="cpu"``
   runs on the CPU.
 * Every registered format makes an ``Arith`` and the quire switch
@@ -39,6 +40,7 @@ from repro_torch.kernels import build, ops
 from repro_torch.ingest import FleetSimulator, run_worker_fleet
 from repro_torch.distributed import ElasticConfig, remesh
 from repro_torch.launch import serve as serve_cli
+from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import make_fleet_mesh_info, split_mesh_info
 from repro_torch.models import build_model
 from repro_torch.serve import ServeConfig, ServingEngine
@@ -83,8 +85,10 @@ def test_imports_with_jax_and_repro_blocked():
 
 
 def test_slice_names_import_with_jax_and_repro_blocked():
-    """The worker pool, the fault-tolerance layer, the MoE module and the
-    recurrent blocks by the names the reference exports them under."""
+    """The worker pool, the fault-tolerance layer, the MoE module, the
+    recurrent blocks and the training path (the train step, the optimizer,
+    the token pipeline and the trainer) by the names the reference exports
+    them under."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -112,6 +116,18 @@ def test_slice_names_import_with_jax_and_repro_blocked():
         "    make_fleet_mesh_info, split_mesh_info)\n"
         "from repro_torch.checkpoint import CheckpointManager\n"
         "from repro_torch.kernels.posit_matmul import round_matmul_sum\n"
+        "from repro_torch.train import TrainState, make_train_step\n"
+        "from repro_torch.train.step import (_apply_weight_quant,\n"
+        "    init_train_state)\n"
+        "from repro_torch.optim import (AdamWConfig, adamw_init,\n"
+        "    adamw_update, wsd_schedule)\n"
+        "from repro_torch.optim.adamw import global_norm\n"
+        "from repro_torch.data.tokens import (TokenPipeline,\n"
+        "    TokenPipelineConfig)\n"
+        "from repro_torch.launch.train import main, train\n"
+        "from repro_torch.models.common import cross_entropy\n"
+        "from repro_torch.models.convert import train_state_from_jax\n"
+        "from repro_torch.kernels.counts import TRAIN_PLAIN\n"
         "print('ok')\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr
@@ -168,11 +184,13 @@ def _serving_engine(dev):
                              mesh_info=split_mesh_info(dev, 2)),
     lambda dev: remesh(None if dev is None else [dev],
                        ElasticConfig(model_parallel=1)),
+    lambda dev: train_cli.train("qwen3-8b", steps=1, batch=2, seq=8,
+                                device=dev),
 ], ids=["StreamEngine", "make_cough_scorer", "detect_rpeaks", "build_model",
         "ServingEngine", "launch.serve", "quickstart", "build_model_moe",
         "run_worker_fleet", "build_model_vlm", "build_model_encdec",
         "build_model_ssm", "build_model_hybrid", "make_fleet_mesh_info",
-        "split_mesh_info", "remesh"])
+        "split_mesh_info", "remesh", "launch.train"])
 def test_entry_points_need_the_card_unless_told(call, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

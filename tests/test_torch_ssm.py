@@ -26,6 +26,8 @@ weights carried over by ``params_from_jax``:
   of the reference model's (relative L2 of the dequantized cache) and its
   bits equal on at least 99 % of the patterns (three mamba layers precede
   the call, so bf16 roundings of the two sides differ there);
+* the training loss (B = 2, S = 32) on the carried weights within 2e-2 of
+  the JAX model's, every gradient leaf within a relative L2 error of 2e-2;
 * ``ServingEngine`` refusing the model;
 * ``tests/test_models_smoke.py``'s decode smoke (shapes, finite logits)
   and its posit16-KV bound against the bf16 cache (atol 0.15, rtol 0.1).
@@ -59,6 +61,7 @@ from repro.models import build_model as jbuild_model
 from repro.models import common as jcommon
 from repro.models import ssm as jssm
 from repro.models.common import Builder
+from repro_torch.checkpoint import flatten_state
 from repro_torch.configs import CONFIGS, reduced
 from repro_torch.core.arith import backend_overrides
 from repro_torch.core.formats import POSIT16
@@ -261,6 +264,15 @@ REFERENCE_SCRIPT = textwrap.dedent("""
                 for name, t in (("k", state["kv"].k), ("v", state["kv"].v)):
                     out[f"{route}/{name}_bits"] = np.asarray(t.bits)
                 out[f"{route}/length"] = np.asarray(state["kv"].length)
+        # the training loss and its gradients on the raw weights
+        raw = m.init(jax.random.key(0))
+        tb = {"tokens": jnp.asarray(inp["train_tokens"])}
+        (loss, _), grads = jax.jit(jax.value_and_grad(
+            lambda p: m.loss(p, tb), has_aux=True))(raw)
+        out["train/loss"] = np.asarray(loss)
+        for path, g in jax.tree_util.tree_flatten_with_path(grads)[0]:
+            out["train/g/" + "/".join(str(k.key) for k in path)] = \
+                np.asarray(g)
     np.savez(sys.argv[2], **out)
 """ % ARCH)
 
@@ -268,10 +280,12 @@ REFERENCE_SCRIPT = textwrap.dedent("""
 @pytest.fixture(scope="module")
 def reference_runs(tmp_path_factory):
     """The JAX model's logits at prefill and each forced step and its KV
-    caches after them, per route, compiled with every bf16 rounding kept."""
+    caches after them, per route, and its training loss and gradients on
+    the raw weights, compiled with every bf16 rounding kept."""
     d = tmp_path_factory.mktemp("zamba_reference")
     toks, forced = _inputs(reduced(CONFIGS[ARCH]))
-    np.savez(d / "in.npz", tokens=toks, forced=forced)
+    np.savez(d / "in.npz", tokens=toks, forced=forced,
+             train_tokens=_train_tokens(reduced(CONFIGS[ARCH])))
     env = dict(os.environ, PYTHONPATH="src",
                XLA_FLAGS="--xla_allow_excess_precision=false")
     r = subprocess.run([sys.executable, "-c", REFERENCE_SCRIPT,
@@ -375,10 +389,41 @@ def test_zamba_layers_in_order(hybrid):
     assert torch.equal(layers[-1][0]["ln"], tail[-1]["ln"])
 
 
-def test_loss_waits_for_the_training_slice(hybrid):
-    tm, tq = hybrid[4], hybrid[6]
-    with pytest.raises(NotImplementedError, match="A5"):
-        tm.loss(tq, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+def test_loss_and_gradients_hold_the_reference(hybrid, reference_runs):
+    """The training loss of the carried weights (B = 2, S = 32, one
+    chunk) within 2e-2 of the JAX model's (the same compiled run as the
+    logits above), every gradient leaf within a relative L2 error of 2e-2
+    of JAX's, and every leaf given a gradient."""
+    tm, traw = hybrid[4], hybrid[5]
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(), traw)
+    leaves, _ = flatten_state(params)
+    loss, metrics = tm.loss(params, {"tokens": torch.from_numpy(
+        _train_tokens(tm.cfg))})
+    assert set(metrics) == {"ce"} and metrics["ce"] is loss
+    grads = torch.autograd.grad(loss, leaves)
+    assert abs(float(loss.detach()) - float(reference_runs["train/loss"])
+               ) < TOL["atol"]
+    want = {}
+    for key, g in reference_runs.items():
+        if key.startswith("train/g/"):
+            node = want
+            *path, leaf = key.split("/")[2:]
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = g
+    want, _ = flatten_state(want)
+    assert len(want) == len(grads)
+    for g, w in zip(grads, want):
+        assert g.shape == w.shape and torch.all(torch.isfinite(g))
+        rel = float(np.linalg.norm(g.numpy() - w) / np.linalg.norm(w))
+        assert rel < 2e-2, rel
+
+
+def _train_tokens(cfg):
+    return np.random.default_rng(7).integers(
+        0, cfg.vocab, (2, 32)).astype(np.int32)
+
+
 
 
 def test_serving_engine_refuses_the_hybrid_family(hybrid):
