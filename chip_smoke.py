@@ -70,9 +70,9 @@ Phases, each fatal on failure:
      reconciling with its ``TokenLedger``, greedy tokens reproduced by a
      second engine with eight of its steps under ``torch.profiler`` (the device's
      busy share and kernels per lane-step, the weight decode's device time
-     per lane-step beside its byte bound), the serve run four times more
-     in turns with the KV write through the append kernel and through the
-     earlier route (ms per decode step of each), the KV-attention kernel
+     per lane-step beside its byte bound), the serve run twice more with
+     the KV write through the append kernel and through the earlier route
+     (ms per decode step of each), the KV-attention kernel
      held against its plain version on the live cache, and the reduced
      config's logits on the card against the same weights on the CPU;
   5b. the MoE serve path: granite-moe-3b-a800m at full width (32 layers,
@@ -92,11 +92,11 @@ Phases, each fatal on failure:
   5c. the vlm family through the model API (``ServingEngine`` refuses it,
      as the reference's does): internvl2-2b at full width (24 layers,
      random weights from a seeded generator on the card, posit16), 4 rows
-     of 256 seeded f32 patch rows and 64 tokens, prefill and 32 greedy
+     of 256 seeded f32 patch rows and 64 tokens, prefill and 16 greedy
      decode steps on a posit8 and a posit16 KV lane: the launches of the
      prefill and of every decode step as ``api_launches`` predicts, no
      plain version called on a CUDA tensor, the greedy tokens reproduced
-     by a second run with 16 of its steps under ``torch.profiler`` (busy
+     by a second run with 8 of its steps under ``torch.profiler`` (busy
      share, device kernels per lane-step), ms per prefill and decode step
      (host clock), tokens/s, card memory, and the reduced config's logits
      on the card against the CPU's;
@@ -188,7 +188,15 @@ Phases, each fatal on failure:
      steps of reduced gemma2-2b (36 B1 launches) near the CPU's, reduced
      qwen3-8b through ``launch/train.py`` resumed from a checkpoint within
      rtol 1e-4, and the pod-compressed branch at world size 1 on NCCL
-     (2 encodes and 2 decodes a gradient leaf, bitwise the plain codec).
+     (2 encodes and 2 decodes a gradient leaf, bitwise the plain codec);
+  11. the planner against the card: phase 10's gemma2-2b cell planned by
+     ``launch.dryrun.plan_cell`` on a 1 × 1 mesh of the card (traced on
+     ``meta``): (a) its argument bytes equal the state and batch held on
+     the card, exactly; (b) ``roofline.analysis.analyze_step`` of one real
+     step on the card counts the FLOPs and bytes of the ``meta`` trace,
+     exactly, with 12 B1 launches; (c) the planned peak beside
+     ``max_memory_allocated``; (d) the roofline terms beside phase 10's
+     ms per step.
 
 Phase 2 also holds the round bitwise at a phase 10 QAT leaf's shape,
 (26, 2304, 1024) f32 posit16, and the multiply-add bitwise and the
@@ -255,6 +263,9 @@ ALU_OPCODES = ("IADD3", "LOP3", "SHF", "LEA", "ISETP", "SEL", "IMNMX",
                "VIMNMX", "FLO", "POPC", "PRMT", "BMSK", "SGXT", "IABS",
                "BREV", "PLOP3", "P2R", "R2P", "LOP")
 PROFILE_TRIES = 3              # profiles taken before a device time is NaN
+LEAD_PAUSE_S = 0.1             # a profile window's host pause, then
+LEAD_SPINS = 256               # its spin kernels (``window_events``),
+LEAD_CYCLES = 20_000           # ~10 us each
 SERVE_ARCH = "qwen3-8b"
 MOE_ARCH = "granite-moe-3b-a800m"   # phase 5b
 LONG_PREFILL = 2048            # phase 5b: a prefill without lengths
@@ -270,8 +281,8 @@ VLM_PROMPT = 64                # phase 5c: tokens after the 256 patch rows
 ENCDEC_SRC = 2048              # phase 5d: source frames (the encoder
                                # attends through chunked_attention)
 ENCDEC_BOS = 16                # phase 5d: BOS tokens primed at prefill
-API_STEPS = 32                 # phases 5c-5f: greedy decode steps a lane
-API_PROFILE = (8, 24)          # decode steps profiled in the second run
+API_STEPS = 16                 # phases 5c-5f: greedy decode steps a lane
+API_PROFILE = (4, 12)          # decode steps profiled in the second run
 POOL_WORKERS = 2               # phase 8
 POOL_SLABS = 2                 # phase 8c: data slabs of the card a worker
 SHARD_SLABS = 4                # phase 9a: data slabs of the card
@@ -331,6 +342,7 @@ TRAIN_ARCH = "gemma2-2b"        # phase 10: trained at full width
 TRAIN_BATCH, TRAIN_SEQ = 4, 512
 TRAIN_STEPS = 4                # timed steps after one warm-up step
 TRAIN_ROUNDS = 12              # B1 launches a step: the rounded leaves
+QAT_ROUNDS = 5                 # QAT rounds in phase 10's profile window
 TRAIN_LEAF = (26, 2304, 1024)  # phase 2: B1 at gemma2-2b's stacked wk
 TRAIN_TOL = 2e-2               # phase 10b: the loss (absolute)
 TRAIN_GRAD_TOL = 2e-2          # ... a gradient leaf (relative L2)
@@ -422,35 +434,48 @@ def device_ms(fn, kernels, reps: int = 50, launches=None) -> float:
     return float("nan")
 
 
-def device_kernels(fn, reps: int = 50):
-    """(device ms per call, device kernels per call) of ``fn``: every
-    kernel, copy and fill that ``torch.profiler`` records on the card, in
-    a profile of 2 ``reps`` calls less one of ``reps`` calls, over
-    ``reps`` (the profiler may miss the first few events of a window; the
-    difference cancels that).  A pair in which a profile recorded none
-    (the profiler drops a window's events now and then) is taken again,
-    up to ``PROFILE_TRIES`` pairs; NaN if none recorded any."""
+def window_events(fn, reps: int = 50):
+    """(the device rows, spins recorded) of one ``torch.profiler`` window
+    of ``reps`` calls of ``fn``: every kernel, copy and fill it records on
+    the card (``key_averages`` rows), but for the ``LEAD_SPINS`` spin
+    kernels (``torch.cuda._sleep``) that open the window after a host
+    pause of ``LEAD_PAUSE_S``.  The profiler drops the first events of a
+    window now and then (late in a long run, most of a QAT round's 60), and
+    a drop that ends among the spins has taken none of ``fn``'s: a window
+    that recorded a spin holds every event of its calls.  A window that
+    recorded none is taken again, up to ``PROFILE_TRIES`` windows; the
+    last one's rows, with 0 spins, if none did."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def totals(calls):
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
+            time.sleep(LEAD_PAUSE_S)
+            for _ in range(LEAD_SPINS):
+                torch.cuda._sleep(LEAD_CYCLES)
+            for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and e.count > 0]
-        return (sum(e.self_device_time_total for e in rows),
-                sum(e.count for e in rows))
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):
-        us1, n1 = totals(reps)
-        us2, n2 = totals(2 * reps)
-        if n1 and n2:
-            return (us2 - us1) / reps / 1e3, (n2 - n1) / reps
-    return float("nan"), float("nan")
+        spins = sum(e.count for e in rows if "spin_kernel" in e.key)
+        rows = [e for e in rows if "spin_kernel" not in e.key]
+        if spins:
+            break
+    return rows, spins
+
+
+def device_kernels(fn, reps: int = 50):
+    """(device ms per call, device kernels per call) of ``fn``: every
+    kernel, copy and fill of a ``window_events`` window, over ``reps``;
+    NaN where no window recorded a spin (its count may be short)."""
+    rows, spins = window_events(fn, reps)
+    if not spins:
+        return float("nan"), float("nan")
+    return (sum(e.self_device_time_total for e in rows) / reps / 1e3,
+            sum(e.count for e in rows) / reps)
 
 
 def ptxas_report(log_text: str):
@@ -2074,17 +2099,17 @@ def profile_serve(dev, model, params, reqs, want, card):
 
 
 def serve_kv_route_ab(dev, model, params, reqs, want, card):
-    """The serve run four times more, in turns, with the KV write through
-    the append kernel (``kernel``) and through the earlier route
-    (``earlier``, ``earlier_kv_append``): ms per decode step of each, on
-    one card in one call, and the greedy tokens of every run equal to the
-    first engine's."""
+    """The serve run twice more, with the KV write through the append
+    kernel (``kernel``) and through the earlier route (``earlier``,
+    ``earlier_kv_append``): ms per decode step of each, on one card in one
+    call, and the greedy tokens of every run equal to the first
+    engine's."""
     import torch
     from repro_torch.models import attention as attn
     real = attn.posit_kv_append
     ms = {"kernel": [], "earlier": []}
     try:
-        for route in ("kernel", "earlier", "earlier", "kernel"):
+        for route in ("kernel", "earlier"):
             attn.posit_kv_append = (real if route == "kernel"
                                     else earlier_kv_append)
             engine = serve_engine(model, params, dev)
@@ -2104,9 +2129,8 @@ def serve_kv_route_ab(dev, model, params, reqs, want, card):
     finally:
         attn.posit_kv_append = real
     log(f"  ms per decode step, KV write by the append kernel "
-        f"{ms['kernel']} against the earlier route {ms['earlier']} (runs "
-        f"in turns kernel, earlier, earlier, kernel; greedy tokens equal in "
-        f"all four) ({card})")
+        f"{ms['kernel']} against the earlier route {ms['earlier']} (greedy "
+        f"tokens equal in both) ({card})")
 
 
 # ---------------------------------------------------------------------------
@@ -2844,8 +2868,8 @@ def check_api_kernels(dev, report):
 
 def time_api_kernels(dev):
     """Phase 4 at the vlm, encdec, ssm and hybrid paths' geometry: the
-    KV-attention over each path's full cache (internvl2-2b: 352 positions,
-    KV 8, G 2, D 128; seamless: 48, KV 16, G 1, D 64; zamba2-7b: 544, KV
+    KV-attention over each path's full cache (internvl2-2b: 336 positions,
+    KV 8, G 2, D 128; seamless: 32, KV 16, G 1, D 64; zamba2-7b: 528, KV
     32, G 1, D 112), the KV append of one decode step (seamless: KV 16, D
     64; zamba2-7b: KV 32, D 112; scalar lengths), the cross K/V codec at
     (4, 2048, 16, 64): the decode to f32 and the encode from f32, posit8
@@ -4338,7 +4362,9 @@ def run_train_full(dev, counters, card, arch=TRAIN_ARCH, batch=TRAIN_BATCH,
     span (CUDA events) beside its byte bound; one more step under
     ``torch.profiler`` (busy share, kernels, B1's device ms beside its
     bound), and one under a profiler of CUDA activity alone (the busy
-    share of a step it stretches less); the peak memory.  Returns B1's row at the training leaves."""
+    share of a step it stretches less); the peak memory.  Returns B1's
+    row at the training leaves and the run's numbers, with the cell still
+    on the card under ``held`` (phase 11 plans and counts it)."""
     import torch
     from repro_torch.checkpoint import flatten_state
     from repro_torch.configs import CONFIGS
@@ -4466,9 +4492,10 @@ def run_train_full(dev, counters, card, arch=TRAIN_ARCH, batch=TRAIN_BATCH,
     log(f"  B1 (posit_round) in the profiled step: {round_dev:.3f} ms on the "
         f"device for its {TRAIN_ROUNDS} launches ({n} recorded), bound "
         f"{round_bound:.3f} ms (8 B a value, {n_rounded} values) ({card})")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak = peak_bytes / 2 ** 30
     log(f"  peak memory allocated {peak:.2f} GiB "
-        f"({torch.cuda.max_memory_allocated() / 1e9:.2f} GB) ({card})")
+        f"({peak_bytes / 1e9:.2f} GB) ({card})")
     if not finite_tree(state["params"]):
         raise AssertionError(f"{arch}: a weight is not finite")
     fmt = get_format("posit16")
@@ -4482,19 +4509,33 @@ def run_train_full(dev, counters, card, arch=TRAIN_ARCH, batch=TRAIN_BATCH,
         raise AssertionError(f"{arch}'s QAT round: {launched} launches, "
                              f"predicted {TRAIN_ROUNDS}")
     ms = cuda_ms(qat_round, reps=1, samples=5)
-    # every kernel, copy and fill of a round and their device time; NaN
-    # where the profiler recorded none (it has missed B1's launches after
-    # the profiled steps).  Not ``device_ms``'s mean recorded launch times
-    # 12: the leaves run from 59904 to 589.8 M values, and a profile that
-    # dropped some big ones read below the byte bound
-    all_ms, kernels = device_kernels(qat_round, reps=5)
-    if not math.isnan(kernels) and kernels != TRAIN_ROUNDS:
-        raise AssertionError(f"{arch}'s QAT round: {kernels} device "
-                             f"kernels a round, predicted {TRAIN_ROUNDS}")
+    # every kernel, copy and fill of QAT_ROUNDS rounds in one profile
+    # window: exactly TRAIN_ROUNDS a round, each a posit_round kernel.
+    # Not ``device_ms``'s mean recorded launch times 12: the leaves run
+    # from 59904 to 589.8 M values, and a profile that dropped some big
+    # ones read below the byte bound.  Not measured only where the
+    # profiler recorded nothing (it has missed whole windows after the
+    # profiled steps); a window that recorded part of the rounds and no
+    # lead spin fails the count
+    rows, spins = window_events(qat_round, reps=QAT_ROUNDS)
+    kernels = sum(e.count for e in rows) / QAT_ROUNDS
+    rounds = sum(e.count for e in rows if "posit_round_kernel" in e.key)
+    all_ms = sum(e.self_device_time_total for e in rows) / QAT_ROUNDS / 1e3
+    if not rows and not spins:
+        all_ms = kernels = float("nan")
+    elif rounds != TRAIN_ROUNDS * QAT_ROUNDS or \
+            kernels != TRAIN_ROUNDS:
+        raise AssertionError(
+            f"{arch}'s QAT round: {kernels:g} device kernels a round, "
+            f"{rounds} posit_round kernels in {QAT_ROUNDS} rounds "
+            f"({spins} of the window's {LEAD_SPINS} lead spins recorded), "
+            f"predicted {TRAIN_ROUNDS} and {TRAIN_ROUNDS * QAT_ROUNDS}")
     log(f"  the QAT round alone: {launched} launches, "
         + ("device kernels not measured (the profiler recorded none)"
-           if math.isnan(kernels) else f"{kernels:g} device kernels, "
-           f"{all_ms:.3f} ms on the device") + f" a round ({card})")
+           if math.isnan(kernels) else f"{kernels:g} device kernels, all "
+           f"posit_round ({rounds} in {QAT_ROUNDS} rounds, {spins} of "
+           f"{LEAD_SPINS} lead spins recorded), {all_ms:.3f} ms on the "
+           f"device") + f" a round ({card})")
     row = dict(name="posit_round",
                shape=f"{arch}'s {TRAIN_ROUNDS} QAT leaves, a step "
                      f"({n_rounded} f32 values)",
@@ -4505,11 +4546,121 @@ def run_train_full(dev, counters, card, arch=TRAIN_ARCH, batch=TRAIN_BATCH,
                                          for t in rounded], reps=1,
                                 samples=3),
                bound_ms=round_bound, bound_by="bytes", library_ms=None)
+    held = {"cfg": cfg, "policy": policy, "model": model, "step": step,
+            "state": state, "pipe": pipe}
     del state, params, leaves, rounded, probe, step, model
     torch.cuda.empty_cache()
     return row, {"ms_per_step": times, "tokens_per_s": [tokens / t
                                                          for t in times],
-                 "adamw_ms": adamw, "peak_gib": peak, "losses": losses}
+                 "adamw_ms": adamw, "peak_gib": peak,
+                 "peak_bytes": peak_bytes,
+                 "losses": losses, "held": held}
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the planner against the card
+# ---------------------------------------------------------------------------
+
+def run_planner(dev, trained, counters, card):
+    """Phase 10's cell (``TRAIN_ARCH``, B = ``TRAIN_BATCH`` × ``TRAIN_SEQ``,
+    posit16 QAT, remat) planned by the dry run on a 1 × 1 mesh of the card
+    (``make_debug_mesh_info(1, 1)``; the planner traces on ``meta`` and
+    allocates nothing), held against the card:
+
+    (a) the planned argument bytes equal the bytes of the train state and
+        batch that phase 10 holds on the card, exactly;
+    (b) ``analyze_step`` of one real step on the card counts the FLOPs and
+        bytes of the planner's ``meta`` trace of the same step, exactly,
+        its FLOPs on f32 operands give the plan's compute term, and the
+        step launches B1 ``TRAIN_ROUNDS`` times;
+    (c) the planned peak beside ``torch.cuda.max_memory_allocated`` over
+        that step and over phase 10's steps, and ``HBM_BYTES`` beside the
+        card's total memory;
+    (d) the roofline terms beside phase 10's ms per step, as a share of
+        the bound.
+
+    A mismatch in (a) or (b) raises."""
+    import torch
+    from repro_torch.checkpoint import flatten_state
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import plan_cell
+    from repro_torch.launch.mesh import make_debug_mesh_info
+    from repro_torch.roofline import hw
+    from repro_torch.roofline.analysis import analyze_step, roofline_terms
+    held = trained["held"]
+    cfg, state, step = held["cfg"], held["state"], held["step"]
+    shape = ShapeConfig("phase10", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    plan = plan_cell(cfg, shape, make_debug_mesh_info(1, 1, device=dev),
+                     held["policy"])
+    plan_s = time.perf_counter() - t0
+    # the batch on the card before the step, as the planner's is on its
+    # device: the counted step then copies nothing from the host
+    batch = {k: v.to(dev) for k, v in
+             held["pipe"].batch_at(TRAIN_STEPS + 3).items()}
+    held_bytes = sum(t.numel() * t.element_size()
+                     for t in flatten_state(state)[0] + [batch["tokens"]])
+    planned = plan["memory"]["arg_bytes_per_device"]
+    log(f"  (a) planned argument bytes {planned:.0f}; the state and batch "
+        f"on the card {held_bytes} (planned in {plan_s:.1f} s on meta, "
+        f"the trace {plan['compile_s']} s of it)")
+    if planned != held_bytes:
+        raise AssertionError(f"planned argument bytes {planned} != "
+                             f"{held_bytes} held on the card")
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    counted = analyze_step(step, state, batch)
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    step_peak = torch.cuda.max_memory_allocated()
+    launches = {c.__name__: c.launches for c in counters if c.launches}
+    log(f"  (b) the card's step counted in {count_s:.1f} s: FLOPs "
+        f"{counted['flops']:.0f}, bytes {counted['bytes']:.0f}, "
+        f"{counted['ops']} ops, kernel ops {counted['kernel_ops']}, "
+        f"launches {launches}; the planner's meta trace: FLOPs "
+        f"{plan['raw']['flops']:.0f}, bytes {plan['raw']['bytes']:.0f}")
+    if launches != {"posit_round": TRAIN_ROUNDS}:
+        raise AssertionError(f"the counted step launched {launches}, "
+                             f"predicted {TRAIN_ROUNDS} posit_round")
+    for k in ("flops", "bytes"):
+        if counted[k] != plan["raw"][k]:
+            raise AssertionError(f"{k}: the card counts {counted[k]}, the "
+                                 f"meta plan {plan['raw'][k]}")
+    # the compute term charges the FLOPs on f32 operands at the f32 peak:
+    # the card's split of the FLOPs gives the plan's term
+    card_terms = roofline_terms(counted["flops"], counted["bytes"], 0.0,
+                                counted["flops_f32"])
+    if card_terms["compute_s"] != plan["terms"]["compute_s"]:
+        raise AssertionError(f"compute term: the card's count gives "
+                             f"{card_terms['compute_s']} s, the meta plan "
+                             f"{plan['terms']['compute_s']} s")
+    peak = plan["memory"]["peak_bytes_per_device"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"  (c) planned peak {peak / 1e9:.3f} GB (arguments "
+        f"{planned / 1e9:.3f} + temporaries "
+        f"{plan['memory']['temp_bytes_per_device'] / 1e9:.3f}); "
+        f"max_memory_allocated {step_peak / 1e9:.3f} GB over the counted "
+        f"step (planned/measured {peak / step_peak:.4f}), "
+        f"{trained['peak_bytes'] / 1e9:.3f} GB over phase 10's steps "
+        f"({peak / trained['peak_bytes']:.4f}); the card-side count's "
+        f"peak {counted['peak_bytes_per_device'] / 1e9:.3f} GB; HBM_BYTES "
+        f"{hw.HBM_BYTES / 1e9:.3f} GB, the card's total_memory "
+        f"{total / 1e9:.3f} GB ({card})")
+    terms = plan["terms"]
+    ms = trained["ms_per_step"]
+    log(f"  (d) roofline terms (H100 SXM5 constants): compute "
+        f"{terms['compute_s'] * 1e3:.3f} ms ({counted['flops_f32']:.0f} of "
+        f"the FLOPs on f32 operands, at the f32 peak), memory "
+        f"{terms['memory_s'] * 1e3:.3f} ms, collective "
+        f"{terms['collective_s'] * 1e3:.3f} ms, dominant "
+        f"{terms['dominant']}, bound {terms['bound_s'] * 1e3:.3f} ms; "
+        f"phase 10's ms per step {[round(t * 1e3, 1) for t in ms]}: the "
+        f"bound is {[round(terms['bound_s'] / t * 100, 1) for t in ms]} % "
+        f"of each; model FLOPs {plan['model_flops_global']:.0f}, useful "
+        f"ratio {plan['useful_ratio']:.4f} ({card})")
 
 
 def reduced_train_batch(cfg, B=2, S=32):
@@ -5090,13 +5241,20 @@ def main() -> int:
 
     phase(f"phase 10: training on the card, {TRAIN_ARCH} at full width")
     t0 = time.perf_counter()
-    row, _ = run_train_full(dev, counters, card)
+    row, trained = run_train_full(dev, counters, card)
     extra.append(row)
     train_reduced_on_card_and_cpu(dev, card)
     train_steps_reduced(dev, counters, card)
     train_pod_branch(dev, counters, card)
-    torch.cuda.empty_cache()
     log(f"  phase 10 in {time.perf_counter() - t0:.1f} s ({card})")
+
+    phase(f"phase 11: the planner against the card, phase 10's "
+          f"{TRAIN_ARCH} cell")
+    t0 = time.perf_counter()
+    run_planner(dev, trained, counters, card)
+    del trained
+    torch.cuda.empty_cache()
+    log(f"  phase 11 in {time.perf_counter() - t0:.1f} s ({card})")
     phase("done")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

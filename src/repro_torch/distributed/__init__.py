@@ -2,10 +2,12 @@
 devices (``MeshInfo``, ``fleet_pad``, ``make_fleet_batch_fn``), the
 posit-compressed collectives on ``torch.distributed``
 (``distributed.collectives``), and fault tolerance with the elastic
-re-mesh.  The reference's production-mesh layout rules (``rules.py``,
-``logical_spec``, ``shard_leaf``) serve its 512-device dry run and land
-with it (ROADMAP.md, queue A item A5b)."""
+re-mesh; and the production meshes' layout rules for the dry run
+(``distributed.rules``, on ``sharding``'s ``PartitionSpec``,
+``NamedSharding``, ``logical_spec``, ``shard_leaf`` and ``replicated``)."""
 from .fault_tolerance import (ElasticConfig, RestartPolicy,  # noqa: F401
                               StepWatchdog, largest_valid_mesh, remesh,
                               run_with_restarts)
-from .sharding import MeshInfo, fleet_pad, make_fleet_batch_fn  # noqa: F401
+from .sharding import (MeshInfo, NamedSharding, PartitionSpec,  # noqa: F401
+                       fleet_pad, logical_spec, make_fleet_batch_fn,
+                       replicated, shard_leaf)

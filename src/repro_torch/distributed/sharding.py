@@ -20,18 +20,21 @@ the path gives a row the same bits whatever the batch's row count — the
 rounded matmul's split over K follows K and N alone
 (``kernels.posit_matmul.round_matmul_plan``).
 
-The reference's production-mesh half (``logical_spec``, ``shard_leaf``,
-``replicated``) serves the 256/512-chip dry run and lands with it
-(ROADMAP.md, queue A item A5b).  ``MeshInfo.pod_axis`` is the training
-step's: a mesh with a ``pod`` axis takes its posit-compressed cross-pod
-gradient branch.
+The production-mesh half is the counterpart of the reference's
+``logical_spec``, ``shard_leaf`` and ``replicated``, which the dry run's
+layout rules (``distributed.rules``) build on.  The port has no
+partitioner: a ``PartitionSpec`` of its own names the mesh axes that cut
+each dim of a leaf, and a ``NamedSharding`` pairs it with a ``MeshInfo``
+to give the shape of one device's shard (``shard_shape``, the same shape
+as JAX's).  ``MeshInfo.pod_axis`` is the training step's: a mesh with a
+``pod`` axis takes its posit-compressed cross-pod gradient branch.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
-from typing import Callable, Dict, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -100,6 +103,81 @@ class MeshInfo:
         dp = [a for a in self.axis_names if a in self.dp_axes]
         order = [dp.index(a) for a in self.dp_axes]
         return tuple(np.transpose(grid[index], order).reshape(-1))
+
+
+class PartitionSpec(tuple):
+    """Which mesh axes cut each dim of a leaf: per dim an axis name, a
+    tuple of names (cut by their product, e.g. ``("pod", "data")``), or
+    None (whole).  A tuple, so it compares equal to ``tuple(jax_spec)``;
+    missing trailing dims are whole."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's layout on a mesh: ``spec`` over ``mesh_info``'s axes."""
+
+    mesh_info: MeshInfo
+    spec: PartitionSpec
+
+    def shard_shape(self, global_shape: Sequence[int]) -> Tuple[int, ...]:
+        """One device's shard of a leaf of ``global_shape``; raises where a
+        cut dim does not divide, as JAX's ``NamedSharding.shard_shape``."""
+        shape = tuple(int(s) for s in global_shape)
+        if len(self.spec) > len(shape):
+            raise ValueError(f"{self.spec} has more dims than {shape}")
+        out = []
+        for d, size in enumerate(shape):
+            axes = self.spec[d] if d < len(self.spec) else None
+            n = 1 if axes is None else self.mesh_info.axis_size(axes)
+            if size % n:
+                raise ValueError(f"dim {d} of {shape} ({size}) does not "
+                                 f"divide {axes} ({n} devices)")
+            out.append(size // n)
+        return tuple(out)
+
+
+def _axis_fits(dim_size: int, axis_size: int) -> bool:
+    return dim_size % axis_size == 0
+
+
+def dp_spec(minfo: MeshInfo):
+    """The data axes as one spec entry: a name, or a tuple of names."""
+    return tuple(minfo.dp_axes) if len(minfo.dp_axes) > 1 \
+        else minfo.dp_axes[0]
+
+
+def logical_spec(minfo: MeshInfo,
+                 dims: Sequence[Tuple[int, Optional[str]]]) -> PartitionSpec:
+    """A spec from (dim_size, logical_axis) pairs, logical_axis in
+    {"batch", "model", None}; a size that does not divide its mesh axis
+    degrades to None (replication), as the reference's does."""
+    spec = []
+    for size, logical in dims:
+        if logical is None:
+            spec.append(None)
+        elif logical == "batch":
+            spec.append(dp_spec(minfo) if _axis_fits(size, minfo.dp_size)
+                        else None)
+        elif logical == "model":
+            spec.append(minfo.tp_axis if _axis_fits(size, minfo.tp_size)
+                        else None)
+        else:
+            raise ValueError(f"unknown logical axis {logical!r}")
+    return PartitionSpec(*spec)
+
+
+def shard_leaf(minfo: MeshInfo, dims) -> NamedSharding:
+    return NamedSharding(minfo, logical_spec(minfo, dims))
+
+
+def replicated(minfo: MeshInfo) -> NamedSharding:
+    return NamedSharding(minfo, PartitionSpec())
 
 
 def fleet_pad(n: int, n_shards: int) -> int:

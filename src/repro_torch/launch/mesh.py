@@ -1,12 +1,21 @@
-"""Fleet meshes — the counterpart of ``repro.launch.mesh``'s small-mesh
-constructors.  Functions, not module constants: importing this module
-touches no device.
+"""Meshes — the counterpart of ``repro.launch.mesh``.  Functions, not
+module constants: importing this module touches no device.
 
-The reference's production meshes (``make_production_mesh``,
-``make_mesh_info``: 256 and 512 chips) serve its dry run and land with it
-(ROADMAP.md, queue A item A5b).
+The fleet meshes are built from the devices present (or one device split
+into data slabs).  The production meshes are the reference's:
+
+Single pod:  (data=16, model=16)          = 256 devices
+Multi-pod:   (pod=2, data=16, model=16)   = 512 devices
+
+By default their every entry is ``torch.device("meta")``: a planning mesh
+for the dry run (``launch.dryrun``), which traces each cell on ``meta`` and
+allocates nothing, as the reference plans on 512 forced host devices.
+Given a real device type they take its first n visible devices, or raise.
 """
 from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -21,6 +30,48 @@ def _visible(device) -> list:
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     return [dev]
+
+
+class Mesh(NamedTuple):
+    """Devices laid out row-major over named axes."""
+
+    devices: Tuple[torch.device, ...]
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="meta") -> Mesh:
+    """The reference's (16, 16) ``("data", "model")`` mesh, or (2, 16, 16)
+    ``("pod", "data", "model")`` with ``multi_pod``.  On ``meta`` (the
+    default) every entry is the meta device; given a real device type,
+    the first n visible devices of it, or a RuntimeError naming the
+    count."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    dev = torch.device(device)
+    if dev.type == "meta":
+        return Mesh((torch.device("meta"),) * n, axes, shape)
+    devs = _visible(dev)
+    if len(devs) < n:
+        raise RuntimeError(
+            f"need {n} devices for mesh {shape}; have {len(devs)} "
+            f"{dev.type} devices — plan on device='meta' (the dry run) or "
+            f"build a host-sized mesh with make_fleet_mesh_info()")
+    return Mesh(tuple(devs[:n]), axes, shape)
+
+
+def make_mesh_info(*, multi_pod: bool = False, device="meta") -> MeshInfo:
+    """The production mesh with its roles: data axes ``("data",)``, or
+    ``("pod", "data")`` with ``multi_pod``; the model axis ``"model"``."""
+    mesh = make_production_mesh(multi_pod=multi_pod, device=device)
+    dp = ("pod", "data") if multi_pod else ("data",)
+    return MeshInfo(mesh.devices, mesh.axis_names, mesh.axis_sizes,
+                    dp_axes=dp)
 
 
 def make_fleet_mesh_info(n_data: int = None, device=None) -> MeshInfo:

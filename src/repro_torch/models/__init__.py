@@ -17,10 +17,15 @@ FAMILIES = {"dense": DecoderLM, "moe": DecoderLM, "vlm": DecoderLM,
 
 
 def build_model(cfg: ModelConfig, policy: QuantPolicy = QuantPolicy(),
-                device=None):
-    """The model of ``cfg`` on ``device`` (None: the card)."""
+                device=None, tp_size: int = 1):
+    """The model of ``cfg`` on ``device`` (None: the card), its MoE expert
+    stacks padded for a model axis of ``tp_size`` (the other families
+    have nothing to pad)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"model family {cfg.family!r} is none of the reference's "
             f"({', '.join(FAMILIES)})")
-    return FAMILIES[cfg.family](cfg, policy, device=device)
+    cls = FAMILIES[cfg.family]
+    if cls is DecoderLM:
+        return cls(cfg, policy, device=device, tp_size=tp_size)
+    return cls(cfg, policy, device=device)

@@ -161,6 +161,34 @@ def plain_attention(q, k, v, *, causal, window, cap, q_offset=0,
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
+def _block_pair(carry, q_blk, qpos, kb, vb, kj: int, *, causal, window,
+                cap, scale):
+    """One step of the online softmax: the (max, denominator, output)
+    carries of a query block after key block ``kj``.  Everything that
+    depends on ``kj`` happens here, so a step's work is this call's."""
+    m_run, l_run, o_run = carry
+    k_block = kb.shape[2]
+    v_blk = vb[:, kj]
+    kpos = kj * k_block + torch.arange(k_block, device=q_blk.device)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", q_blk,
+                          kb[:, kj].to(torch.float32)) * scale
+    logits = softcap(logits, cap)
+    msk = (qpos[:, None] - kpos[None, :]) < window
+    if causal:
+        msk = msk & (kpos[None, :] <= qpos[:, None])
+    logits = torch.where(msk, logits, NEG_INF)
+    m_new = torch.maximum(m_run, logits.amax(dim=-1))
+    p = torch.exp(logits - m_new[..., None])
+    p = torch.where(msk, p, 0.0)
+    alpha = torch.exp(m_run - m_new)
+    l_run = l_run * alpha + p.sum(dim=-1)
+    pv = torch.einsum("bkgqs,bskd->bkgqd",
+                      p.to(v_blk.dtype).to(torch.float32),
+                      v_blk.to(torch.float32))
+    o_run = o_run * alpha[..., None] + pv
+    return m_new, l_run, o_run
+
+
 def chunked_attention(q, k, v, *, causal, window, cap,
                       q_block=512, k_block=512, q_offset=0):
     """Online-softmax blocked attention — never materializes (Sq, Skv).
@@ -188,32 +216,17 @@ def chunked_attention(q, k, v, *, causal, window, cap,
     for qi in range(nq):
         q_blk = qb[:, qi].to(torch.float32)
         qpos = q_offset + qi * q_block + torch.arange(q_block, device=dev)
-        m_run = torch.full((B, KV, G, q_block), NEG_INF, dtype=torch.float32,
-                           device=dev)
-        l_run = torch.zeros((B, KV, G, q_block), dtype=torch.float32,
-                            device=dev)
-        o_run = torch.zeros((B, KV, G, q_block, D), dtype=torch.float32,
-                            device=dev)
+        carry = (torch.full((B, KV, G, q_block), NEG_INF,
+                            dtype=torch.float32, device=dev),
+                 torch.zeros((B, KV, G, q_block), dtype=torch.float32,
+                             device=dev),
+                 torch.zeros((B, KV, G, q_block, D), dtype=torch.float32,
+                             device=dev))
         for kj in range(nk):
-            v_blk = vb[:, kj]
-            kpos = kj * k_block + torch.arange(k_block, device=dev)
-            logits = torch.einsum("bqkgd,bskd->bkgqs", q_blk,
-                                  kb[:, kj].to(torch.float32)) * scale
-            logits = softcap(logits, cap)
-            msk = (qpos[:, None] - kpos[None, :]) < window
-            if causal:
-                msk = msk & (kpos[None, :] <= qpos[:, None])
-            logits = torch.where(msk, logits, NEG_INF)
-            m_new = torch.maximum(m_run, logits.amax(dim=-1))
-            p = torch.exp(logits - m_new[..., None])
-            p = torch.where(msk, p, 0.0)
-            alpha = torch.exp(m_run - m_new)
-            l_run = l_run * alpha + p.sum(dim=-1)
-            pv = torch.einsum("bkgqs,bskd->bkgqd",
-                              p.to(v_blk.dtype).to(torch.float32),
-                              v_blk.to(torch.float32))
-            o_run = o_run * alpha[..., None] + pv
-            m_run = m_new
+            carry = _block_pair(carry, q_blk, qpos, kb, vb, kj,
+                                causal=causal, window=window, cap=cap,
+                                scale=scale)
+        m_run, l_run, o_run = carry
         out = o_run / torch.clamp(l_run, min=1e-30)[..., None]
         # (B, KV, G, q_block, D) → (B, q_block, H, D)
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, q_block, H, D))

@@ -1,6 +1,14 @@
 """Mixture-of-Experts FFN on one device — the counterpart of
-``repro.models.moe`` with a model axis of 1 (tp = 1: no expert padding, no
-``shard_map``, no ``psum``).
+``repro.models.moe`` (no ``shard_map``, no ``psum``: the device holds
+every expert).
+
+Built for a model axis of ``tp_size`` devices, the expert stacks are
+zero-padded to ``padded_experts(E, tp_size)``, as the reference's are
+(granite-moe's 40 → 48 at tp = 16).  The router keeps E outputs, so no
+token is routed to a padded expert; the expert products run over all Ep
+stacks, as the reference's shards run theirs (a padded expert computes
+its C filler tokens at gate weight 0), and only the E real experts'
+outputs are combined.  At tp_size = 1, Ep = E and nothing changes.
 
 The arithmetic is the reference's: an f32 router, softmax, top-k and
 renormalisation of the gates; a first-come-first-served capacity of C
@@ -36,18 +44,25 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.quant import PositTensor
+
 from .common import param, wval
 
 
-def init_moe(cfg) -> dict:
-    """The reference's tree with its expert axis unpadded (a model axis of
-    1: its ``padded_experts(E, 1)`` is E)."""
+def padded_experts(n_experts: int, tp: int) -> int:
+    return (n_experts + tp - 1) // tp * tp
+
+
+def init_moe(cfg, tp_size: int = 1) -> dict:
+    """The reference's tree: the router (d, E), the expert stacks padded
+    to ``padded_experts(E, tp_size)``."""
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    Ep = padded_experts(E, tp_size)
     return {
         "router": param((d, E), scale=0.02),
-        "w_gate": param((E, d, ff)),
-        "w_up": param((E, d, ff)),
-        "w_down": param((E, ff, d)),
+        "w_gate": param((Ep, d, ff)),
+        "w_up": param((Ep, d, ff)),
+        "w_down": param((Ep, ff, d)),
     }
 
 
@@ -124,13 +139,17 @@ def moe_ffn(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) → (out in x's dtype, the f32 aux loss)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
+    wg = p["w_gate"]
+    Ep = (wg.bits if isinstance(wg, PositTensor) else wg).shape[0]
     xf = x.reshape(-1, d)
     T = xf.shape[0]
     C = _capacity(T, cfg)
     gates, gatev, assign = route(xf, wval(p["router"], torch.float32), k)
-    idx, w_tok, rank, kept = select(assign, gatev, E, C)
+    # a padded expert is never hit: it takes the first C tokens as
+    # fillers at weight 0, as the reference's top_k does
+    idx, w_tok, rank, kept = select(assign, gatev, Ep, C)
 
-    gath = xf[idx.reshape(-1)].reshape(E, C, d)
+    gath = xf[idx.reshape(-1)].reshape(Ep, C, d)
     h = _expert_matmul(gath, wval(p["w_gate"]))
     if cfg.ffn_kind == "swiglu":
         u = _expert_matmul(gath, wval(p["w_up"]))

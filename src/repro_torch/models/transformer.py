@@ -46,7 +46,7 @@ class DecoderLM:
     """Dense, MoE or VLM decoder LM on one device (``None``: the card)."""
 
     def __init__(self, cfg: ModelConfig, policy: QuantPolicy = QuantPolicy(),
-                 device=None):
+                 device=None, tp_size: int = 1):
         if cfg.frontend not in ("none", "vision_stub"):
             raise NotImplementedError(
                 f"DecoderLM has no {cfg.frontend!r} frontend: the "
@@ -54,6 +54,7 @@ class DecoderLM:
         self.cfg = cfg
         self.policy = policy
         self.device = resolve_device(device)
+        self.tp_size = tp_size      # the expert stacks' padding
 
     # -- params -----------------------------------------------------------
     def layer_spec(self) -> dict:
@@ -67,7 +68,7 @@ class DecoderLM:
             p["ln1_post"] = param((cfg.d_model,), init="zeros")
             p["ln2_post"] = param((cfg.d_model,), init="zeros")
         if cfg.n_experts:
-            p["moe"] = init_moe(cfg)
+            p["moe"] = init_moe(cfg, self.tp_size)
         else:
             p["ffn"] = init_ffn(cfg)
         return p

@@ -31,7 +31,8 @@ in-process run; ``fake_quant`` on a CUDA tensor through the round kernel
 (one launch, the plain round's bits), a plain round arriving through it
 caught by ``PlainCalls(TRAIN_PLAIN)`` and ``refuse_plain_on_card``, and
 one posit16 QAT train step of reduced gemma2-2b (one round launch per
-rounded leaf, the loss near the CPU's).
+rounded leaf, the loss near the CPU's), whose FLOPs, bytes and kernel ops
+the dry run's counter reads the same on the card as on ``meta``.
 """
 import numpy as np
 import pytest
@@ -1075,3 +1076,40 @@ def test_qat_train_step_on_the_card(dev):
         assert all(torch.isfinite(v).all() for v in met.values())
         losses[d.type] = float(met["loss"])
     assert abs(losses["cuda"] - losses["cpu"]) < 2e-2
+
+
+def test_a_train_steps_count_on_the_card_equals_its_meta_trace(dev):
+    """``analyze_step`` of one posit16 QAT step of reduced gemma2-2b on
+    the card counts the FLOPs (those on f32 operands apart), bytes and
+    kernel ops of the same step traced on ``meta`` (the dry run's planning
+    device), and the card's step launches the round kernel once a rounded
+    leaf."""
+    from repro_torch.configs import CONFIGS, reduced
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch.mesh import make_debug_mesh_info
+    from repro_torch.models import build_model
+    from repro_torch.roofline.analysis import analyze_step
+    from repro_torch.train.step import init_train_state, make_train_step
+    cfg = reduced(CONFIGS["gemma2-2b"])
+    policy = QuantPolicy(weights="posit16")
+    batch = TokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=64, global_batch=4)).batch_at(1)
+    counts = {}
+    for d in (dev, torch.device("meta")):
+        model = build_model(cfg, policy, device=d)
+        gen = torch.Generator(device=d) if d.type == "cuda" else \
+            torch.Generator()
+        state = init_train_state(model.init(gen.manual_seed(0)))
+        step = make_train_step(model, make_debug_mesh_info(device=d), policy)
+        posit_round.launches = 0
+        counts[d.type] = analyze_step(step, state, batch)
+        counts[d.type]["launches"] = posit_round.launches
+    card, meta = counts["cuda"], counts["meta"]
+    assert card["flops"] == meta["flops"] > 0
+    assert card["flops_f32"] == meta["flops_f32"]
+    assert card["bytes"] == meta["bytes"] > 0
+    assert card["kernel_ops"] == meta["kernel_ops"]
+    assert card["launches"] == card["kernel_ops"]["posit_round"] > 0
+    assert meta["launches"] == 0
+    assert card["arg_bytes_per_device"] == meta["arg_bytes_per_device"]

@@ -5,7 +5,8 @@
   pool's, the restart policy's, the MoE layer's, the encoder-decoder's,
   the fleet mesh's, the collectives', the checkpoint manager's and the
   training path's (``train``, ``optim``, ``data.tokens``,
-  ``launch.train``) public names.
+  ``launch.train``) and the planning path's (``distributed.rules``, the
+  production meshes, ``launch.dryrun``, ``roofline``) public names.
 * No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
   ``jax`` or ``repro`` (an AST scan).
 * Entry points (the stream engine and window cores, ``build_model``,
@@ -86,9 +87,10 @@ def test_imports_with_jax_and_repro_blocked():
 
 def test_slice_names_import_with_jax_and_repro_blocked():
     """The worker pool, the fault-tolerance layer, the MoE module, the
-    recurrent blocks and the training path (the train step, the optimizer,
-    the token pipeline and the trainer) by the names the reference exports
-    them under."""
+    recurrent blocks, the training path (the train step, the optimizer,
+    the token pipeline and the trainer) and the planning path (the layout
+    rules, the production meshes, the dry run, the roofline) by the names
+    the reference exports them under."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -128,6 +130,20 @@ def test_slice_names_import_with_jax_and_repro_blocked():
         "from repro_torch.models.common import cross_entropy\n"
         "from repro_torch.models.convert import train_state_from_jax\n"
         "from repro_torch.kernels.counts import TRAIN_PLAIN\n"
+        "from repro_torch.distributed import (NamedSharding,\n"
+        "    PartitionSpec, logical_spec, replicated, shard_leaf)\n"
+        "from repro_torch.distributed.rules import (COL_PAR, ROW_PAR,\n"
+        "    batch_shardings, cache_shardings, params_shardings,\n"
+        "    zero1_shardings)\n"
+        "from repro_torch.launch.mesh import (make_mesh_info,\n"
+        "    make_production_mesh)\n"
+        "from repro_torch.launch.dryrun import (POLICIES, input_specs,\n"
+        "    iter_cells, lower_cell, main, model_flops)\n"
+        "from repro_torch.roofline import (analyze_step,\n"
+        "    collective_bytes, roofline_terms)\n"
+        "from repro_torch.roofline.hw import (HBM_BW, HBM_BYTES,\n"
+        "    IB_NDR_LINK_BW, PEAK_BF16_FLOPS)\n"
+        "from repro_torch.models.moe import padded_experts\n"
         "print('ok')\n")
     out = _run(code)
     assert out.returncode == 0, out.stderr
