@@ -26,6 +26,7 @@ import torch
 from repro_torch.core.arith import Arith
 from repro_torch.core.device import resolve_device
 from repro_torch.data.biosignals import ECG_FS, ecg_dataset
+from repro_torch.obs.trace import span
 
 from .kmeans import kmeans_1d
 from .metrics import rpeak_f1
@@ -38,6 +39,8 @@ REFRACTORY_S = 0.22
 RESERVOIR_SIZE = 500
 # Every RESERVOIR_STRIDE-th score of each window enters the reservoir.
 RESERVOIR_STRIDE = 5
+# Lloyd iterations of the threshold's 2-means, every window.
+KMEANS_ITERS = 12
 # Candidates collected before the RR estimate bootstraps (median of diffs).
 RR_BOOT = 8
 # Retained score-tail cap: how far back the Bayesian gap walk can search.
@@ -113,7 +116,8 @@ def threshold_update(ar: Arith, reservoir: np.ndarray,
     x = torch.as_tensor(reservoir, dtype=torch.float32, device=dev)
     if init is not None:
         init = torch.as_tensor(init, dtype=torch.float32, device=dev)
-    cents = kmeans_1d(ar, x, k=2, init=init).cpu().numpy().astype(np.float32)
+    cents = kmeans_1d(ar, x, k=2, iters=KMEANS_ITERS,
+                      init=init).cpu().numpy().astype(np.float32)
     c = np.sort(np.asarray(cents, np.float64))
     thr = 0.3 * c[0] + 0.7 * c[1]
     return (float(thr) if np.isfinite(thr) else float("nan")), cents
@@ -255,10 +259,20 @@ class RPeakFold:
             self.reservoir = reservoir_update(
                 self.reservoir, s, self.reservoir_size,
                 self.reservoir_stride)
-            self.thr, cents = threshold_update(ar, self.reservoir,
-                                               init=self.cents,
-                                               device=self.device)
+            with span("stream", "rpeak.threshold", iters=KMEANS_ITERS):
+                self.thr, cents = threshold_update(ar, self.reservoir,
+                                                   init=self.cents,
+                                                   device=self.device)
             self.cents = cents if np.all(np.isfinite(cents)) else None
+        with span("stream", "rpeak.stitch"):
+            self._stitch(s, final)
+        new = np.asarray(self.out[self.emitted:], np.int64)
+        self.emitted = len(self.out)
+        return new
+
+    def _stitch(self, s: np.ndarray, final: bool) -> None:
+        """Stage 4 on the window's sanitized scores ``s``: candidates up to
+        the commit frontier, the RR bootstrap and gap walk, the tail trim."""
         self.tail = np.concatenate([self.tail, s])
         self.end += len(s)
         commit_to = self.end if final else max(
@@ -286,9 +300,6 @@ class RPeakFold:
                     self.out.extend(self.pending)
                     self.pending = []
         self._trim()
-        new = np.asarray(self.out[self.emitted:], np.int64)
-        self.emitted = len(self.out)
-        return new
 
     def finalize(self, ar: Arith) -> np.ndarray:
         """End-of-stream flush: commit the deferred lookahead margin."""

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from repro_torch.core.arith import Arith
 from repro_torch.core.device import resolve_device
 from repro_torch.data.biosignals import AUDIO_SR, cough_dataset
+from repro_torch.obs.trace import span
 
 from . import dsp
 from .forest import Forest, forest_predict, train_forest
@@ -30,13 +31,16 @@ def extract_features(ar: Arith, audio: torch.Tensor,
     # crop/zero-pad to the 4096-point FFT before the ingest rounding
     # (rnd is elementwise and rnd(0) == 0, so the bits match
     # round-then-crop without rounding dropped samples)
-    a = audio[..., :FFT_N]
-    if a.shape[-1] < FFT_N:
-        a = F.pad(a, (0, FFT_N - a.shape[-1]))
-    a = ar.rnd(a)
-    psd = dsp.power_spectrum(ar, a)                   # (B, 2, FFT_N/2+1)
-    spec = dsp.spectral_features(ar, psd, AUDIO_SR)   # (B, 2, 6)
-    mf = dsp.mfcc(ar, psd, AUDIO_SR)                  # (B, 2, 13)
+    with span("core", "cough.fft"):
+        a = audio[..., :FFT_N]
+        if a.shape[-1] < FFT_N:
+            a = F.pad(a, (0, FFT_N - a.shape[-1]))
+        a = ar.rnd(a)
+        psd = dsp.power_spectrum(ar, a)               # (B, 2, FFT_N/2+1)
+    with span("core", "cough.spectral"):
+        spec = dsp.spectral_features(ar, psd, AUDIO_SR)   # (B, 2, 6)
+    with span("core", "cough.mfcc"):
+        mf = dsp.mfcc(ar, psd, AUDIO_SR)              # (B, 2, 13)
     im = ar.rnd(imu)
     zcr = dsp.zero_crossing_rate(ar, im)              # (B, 9)
     kur = dsp.kurtosis(ar, im)                        # (B, 9)
@@ -71,7 +75,9 @@ def make_cough_scorer(fmt_name: str, forest: Forest, device=None):
     def scorer(audio, imu) -> torch.Tensor:
         audio = torch.as_tensor(audio, dtype=torch.float32, device=dev)
         imu = torch.as_tensor(imu, dtype=torch.float32, device=dev)
-        return forest_predict(ar, forest, extract_features(ar, audio, imu))
+        feats = extract_features(ar, audio, imu)
+        with span("core", "cough.forest"):
+            return forest_predict(ar, forest, feats)
 
     return scorer
 

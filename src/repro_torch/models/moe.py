@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.quant import PositTensor
+from repro_torch.obs.trace import span
 
 from .common import param, wval
 
@@ -144,21 +145,24 @@ def moe_ffn(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     xf = x.reshape(-1, d)
     T = xf.shape[0]
     C = _capacity(T, cfg)
-    gates, gatev, assign = route(xf, wval(p["router"], torch.float32), k)
-    # a padded expert is never hit: it takes the first C tokens as
-    # fillers at weight 0, as the reference's top_k does
-    idx, w_tok, rank, kept = select(assign, gatev, Ep, C)
+    with span("model", "moe.route"):
+        gates, gatev, assign = route(xf, wval(p["router"], torch.float32), k)
+        # a padded expert is never hit: it takes the first C tokens as
+        # fillers at weight 0, as the reference's top_k does
+        idx, w_tok, rank, kept = select(assign, gatev, Ep, C)
 
-    gath = xf[idx.reshape(-1)].reshape(Ep, C, d)
-    h = _expert_matmul(gath, wval(p["w_gate"]))
-    if cfg.ffn_kind == "swiglu":
-        u = _expert_matmul(gath, wval(p["w_up"]))
-        h = F.silu(h) * u
-    else:   # jax.nn.gelu's default is the tanh approximation
-        h = F.gelu(h, approximate="tanh")
-    y = _expert_matmul(h.to(x.dtype), wval(p["w_down"]))
-    y = y * w_tok[..., None]
-    out = combine(y, assign, rank, kept)
+    with span("model", "moe.experts"):
+        gath = xf[idx.reshape(-1)].reshape(Ep, C, d)
+        h = _expert_matmul(gath, wval(p["w_gate"]))
+        if cfg.ffn_kind == "swiglu":
+            u = _expert_matmul(gath, wval(p["w_up"]))
+            h = F.silu(h) * u
+        else:   # jax.nn.gelu's default is the tanh approximation
+            h = F.gelu(h, approximate="tanh")
+        y = _expert_matmul(h.to(x.dtype), wval(p["w_down"]))
+    with span("model", "moe.combine"):
+        y = y * w_tok[..., None]
+        out = combine(y, assign, rank, kept)
 
     # Load-balance aux loss (Switch-style): E * Σ_e f_e · P_e.
     f_e = torch.mean((assign[..., None] == torch.arange(

@@ -31,6 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.core.quant import fake_quant
+from repro_torch.obs.trace import span
 
 from . import attention as attn
 from .common import (COMPUTE_DTYPE, cross_entropy, embed, init_embedding,
@@ -102,16 +103,19 @@ class DecoderLM:
         """One layer: ``attend(h) -> (h, cache)`` is the training, prefill
         or decode attention of the normed residual stream.  Returns (x,
         cache, the MoE layer's f32 aux loss; None for a dense FFN)."""
-        h, cache = attend(rms_norm(x, lp["ln1"]))
+        with span("model", "model.attention"):
+            h, cache = attend(rms_norm(x, lp["ln1"]))
         if "ln1_post" in lp:
             h = rms_norm(h, lp["ln1_post"])
         x = x + h
         h = rms_norm(x, lp["ln2"])
         aux = None
         if "moe" in lp:
-            h, aux = moe_ffn(lp["moe"], h, self.cfg)
+            with span("model", "model.moe"):
+                h, aux = moe_ffn(lp["moe"], h, self.cfg)
         else:
-            h = ffn(lp["ffn"], h, self.cfg)
+            with span("model", "model.ffn"):
+                h = ffn(lp["ffn"], h, self.cfg)
         if "ln2_post" in lp:
             h = rms_norm(h, lp["ln2_post"])
         return self._act_quant(x + h), cache, aux
@@ -225,23 +229,29 @@ class DecoderLM:
             lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                       device=self.device)
         caches = self.init_cache(B, capacity, per_row=lengths is not None)
-        x = self._inputs_embed(params, batch)
+        with span("model", "model.embed"):
+            x = self._inputs_embed(params, batch)
         x, caches = self._run_layers(
             params, x, caches,
             lambda lp, x, w, c: self._block_prefill(lp, x, w, c, lengths))
-        x = rms_norm(x, params["final_ln"])
-        if lengths is None:
-            x_last = x[:, -1:]
-        else:  # each row's last real token (right-padded layout)
-            idx = torch.clamp(lengths - 1, 0, S - 1).long()
-            x_last = x[torch.arange(B, device=x.device), idx][:, None, :]
-        return unembed(params["embed"], x_last, cfg.final_softcap), caches
+        with span("model", "model.unembed"):
+            x = rms_norm(x, params["final_ln"])
+            if lengths is None:
+                x_last = x[:, -1:]
+            else:  # each row's last real token (right-padded layout)
+                idx = torch.clamp(lengths - 1, 0, S - 1).long()
+                x_last = x[torch.arange(B, device=x.device), idx][:, None, :]
+            return unembed(params["embed"], x_last,
+                           cfg.final_softcap), caches
 
     def decode_step(self, params, tokens, caches):
         """tokens: (B, 1) → next-token logits; the caches' storage is
         written in place and returned with the advanced lengths."""
-        tokens = torch.as_tensor(tokens, device=self.device).long()
-        x = self._embed_scale(embed(params["embed"], tokens))
+        with span("model", "model.embed"):
+            tokens = torch.as_tensor(tokens, device=self.device).long()
+            x = self._embed_scale(embed(params["embed"], tokens))
         x, caches = self._run_layers(params, x, caches, self._block_decode)
-        x = rms_norm(x, params["final_ln"])
-        return unembed(params["embed"], x, self.cfg.final_softcap), caches
+        with span("model", "model.unembed"):
+            x = rms_norm(x, params["final_ln"])
+            return unembed(params["embed"], x,
+                           self.cfg.final_softcap), caches

@@ -114,7 +114,11 @@ class Gauge(Counter):
 
 
 class Histogram(_Instrument):
-    """Raw-sample reservoir (bounded deque) per label set."""
+    """Raw-sample reservoir (bounded deque) per label set.
+
+    ``count`` and ``sum`` cover every observation, but the percentiles
+    are of the last ``reservoir`` samples only (512 by default): an early
+    burst falls out of them, so no tail over a whole run is read here."""
 
     kind = "histogram"
 

@@ -21,8 +21,11 @@ Observability mirrors the stream engine's: a metrics registry the
 ``TokenLedger`` is bound into (``bind_serving_engine``), the reference's
 program-cache probes (``jit_programs_total`` counts one decode callable per
 lane and one prefill shape per (lane, prompt bucket); ``jit_cache_hits_total``
-the prefills that reuse a bucket), and an optional tracer with admit,
-prefill, decode and retire spans from host stamps.
+the prefills that reuse a bucket), and an optional tracer with the
+engine's span tree from host stamps: each ``step`` with its admissions
+(and their prefills), decodes and per-row accounting, the model's
+layers inside a prefill or decode (``obs/trace.py``), and retire
+instants.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from repro_torch.core.quant import quantize_params
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import to_device
 from repro_torch.obs import MetricsRegistry, bind_serving_engine
+from repro_torch.obs.trace import span, traced
 from repro_torch.stream.engine import bucket_size
 
 from .accounting import (TokenLedger, kv_traffic_bytes, prefill_energy_nj,
@@ -113,15 +117,16 @@ class _Lane:
         vocab = self.model.cfg.vocab
         logits, new = self.model.decode_step(self.params, self.cur[:, None],
                                              self.caches)
-        lv = logits[:, -1, :vocab].to(torch.float32)
-        nxt = torch.argmax(lv, dim=-1)
-        active = torch.from_numpy(self.active).to(lv.device)
-        self.caches = KVCache(new.k, new.v, torch.where(
-            active, new.length, self.caches.length))
-        toks = nxt.cpu().numpy()
-        for i in np.flatnonzero(self.active & (self.temps > 0)):
-            toks[i] = sample_token(lv[i], float(self.temps[i]), seed,
-                                   int(self.rids[i]), int(self.steps[i]))
+        with span("serve", "serve.sample"):
+            lv = logits[:, -1, :vocab].to(torch.float32)
+            nxt = torch.argmax(lv, dim=-1)
+            active = torch.from_numpy(self.active).to(lv.device)
+            self.caches = KVCache(new.k, new.v, torch.where(
+                active, new.length, self.caches.length))
+            toks = nxt.cpu().numpy()
+            for i in np.flatnonzero(self.active & (self.temps > 0)):
+                toks[i] = sample_token(lv[i], float(self.temps[i]), seed,
+                                       int(self.rids[i]), int(self.steps[i]))
         self.cur = torch.from_numpy(toks).to(lv.device)
         return toks
 
@@ -233,33 +238,32 @@ class ServingEngine:
             self._jit_hits.inc(site="serve.prefill", lane=req.policy.lane)
         toks = np.zeros((1, P_pad), np.int64)
         toks[0, :P] = req.prompt  # right-pad; lengths mask the tail
-        t0 = time.perf_counter()
-        logits, new_caches = lane.model.prefill(
-            lane.params,
-            {"tokens": torch.from_numpy(toks).to(self.device),
-             "lengths": torch.tensor([P], dtype=torch.int32,
-                                     device=self.device)},
-            lane.capacity)
-        _install(lane.caches, new_caches, slot)
-        # the first token comes from the prefill logits (step 0)
-        lv = logits[0, -1, :self.model.cfg.vocab].to(torch.float32)
-        if req.temperature > 0:
-            tok = sample_token(lv, req.temperature, self.cfg.seed, req.rid,
-                               0)
-        else:
-            tok = int(torch.argmax(lv))     # waits for the install too
-        t1 = time.perf_counter()
-        if self.tracer is not None:
-            self.tracer.complete("serve", "prefill", t0, t1,
-                                 track=f"lane:{req.policy.lane}",
-                                 args={"rid": req.rid, "P": P,
-                                       "P_pad": P_pad, "slot": slot})
+        with span("serve", "serve.prefill", rid=req.rid, P=P, P_pad=P_pad,
+                  slot=slot) as sp:
+            t0 = time.perf_counter()
+            logits, new_caches = lane.model.prefill(
+                lane.params,
+                {"tokens": torch.from_numpy(toks).to(self.device),
+                 "lengths": torch.tensor([P], dtype=torch.int32,
+                                         device=self.device)},
+                lane.capacity)
+            _install(lane.caches, new_caches, slot)
+            # the first token comes from the prefill logits (step 0)
+            with span("serve", "serve.sample"):
+                lv = logits[0, -1, :self.model.cfg.vocab].to(torch.float32)
+                if req.temperature > 0:
+                    tok = sample_token(lv, req.temperature, self.cfg.seed,
+                                       req.rid, 0)
+                else:
+                    tok = int(torch.argmax(lv))  # waits for the install too
+            t1 = time.perf_counter()
+            sp.at(t0, t1)
         self.ledger.record_prefill(
             req.policy.lane, P, t1 - t0,
             prefill_energy_nj(self.model.cfg, P, req.policy))
         if self.scheduler.on_token(req.policy.lane, slot, tok):
             if self.tracer is not None:
-                self.tracer.instant("serve", "retire",
+                self.tracer.instant("serve", "serve.retire",
                                     track=f"lane:{req.policy.lane}",
                                     args={"rid": req.rid, "slot": slot})
             return
@@ -271,51 +275,50 @@ class ServingEngine:
         lane.ctx[slot] = P
 
     # -- one engine tick --------------------------------------------------
+    @traced("serve", "serve.step")
     def step(self) -> int:
         """Admit what fits, then run one batched decode step per active
         lane.  Returns the number of real tokens emitted."""
         tr = self.tracer
         for req, slot in self.scheduler.take_admissions():
-            t_adm = tr.now() if tr is not None else 0.0
-            self._admit(req, slot)
-            if tr is not None:
-                tr.complete("serve", "admit", t_adm, tr.now(),
-                            track=f"lane:{req.policy.lane}",
-                            args={"rid": req.rid, "slot": slot})
+            with span("serve", "serve.admit", lane=req.policy.lane,
+                      rid=req.rid, slot=slot):
+                self._admit(req, slot)
         emitted = 0
         for lane_name in self.scheduler.active_lanes():
             lane = self._lanes[lane_name]
             rows = self.scheduler.active_rows(lane_name)
             lane.active[:] = False
             lane.active[rows] = True
-            t0 = time.perf_counter()
-            toks = lane.decode(self.cfg.seed)   # ends on a host copy
-            wall = time.perf_counter() - t0
-            energy = 0.0
-            kv_read = 0.0
-            for i in rows:
-                lane.ctx[i] += 1
-                energy += token_energy_nj(self.model.cfg, int(lane.ctx[i]),
-                                          lane.policy)
-                kv_read += kv_traffic_bytes(self.model.cfg,
-                                            int(lane.ctx[i]),
-                                            lane.policy.kv_bits)[0]
-                lane.steps[i] += 1
-                if self.scheduler.on_token(lane_name, i, int(toks[i])):
-                    lane.active[i] = False
-                    if tr is not None:
-                        tr.instant("serve", "retire",
-                                   track=f"lane:{lane_name}",
-                                   args={"rid": int(lane.rids[i]),
-                                         "slot": int(i)})
-            emitted += len(rows)
-            if tr is not None:
-                tr.complete("serve", "decode", t0, t0 + wall,
-                            track=f"lane:{lane_name}",
-                            args={"rows": len(rows)})
-            self.ledger.record_decode(
-                lane_name, len(rows), self.cfg.batch_size - len(rows),
-                wall, energy, kv_read)
+            with span("serve", "serve.decode", lane=lane_name,
+                      rows=len(rows)) as sp:
+                t0 = time.perf_counter()
+                toks = lane.decode(self.cfg.seed)   # ends on a host copy
+                wall = time.perf_counter() - t0
+                sp.at(t0, t0 + wall)
+            with span("serve", "serve.account", lane=lane_name,
+                      rows=len(rows)):
+                energy = 0.0
+                kv_read = 0.0
+                for i in rows:
+                    lane.ctx[i] += 1
+                    energy += token_energy_nj(self.model.cfg,
+                                              int(lane.ctx[i]), lane.policy)
+                    kv_read += kv_traffic_bytes(self.model.cfg,
+                                                int(lane.ctx[i]),
+                                                lane.policy.kv_bits)[0]
+                    lane.steps[i] += 1
+                    if self.scheduler.on_token(lane_name, i, int(toks[i])):
+                        lane.active[i] = False
+                        if tr is not None:
+                            tr.instant("serve", "serve.retire",
+                                       track=f"lane:{lane_name}",
+                                       args={"rid": int(lane.rids[i]),
+                                             "slot": int(i)})
+                emitted += len(rows)
+                self.ledger.record_decode(
+                    lane_name, len(rows), self.cfg.batch_size - len(rows),
+                    wall, energy, kv_read)
         return emitted
 
     def run(self) -> List[Completion]:

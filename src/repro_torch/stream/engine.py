@@ -17,12 +17,15 @@ attributed in the ledger.
 
 The observability plane (``repro_torch.obs``) watches from the host: a
 metrics registry mirrors the ledger and counts built pipeline callables,
-and an optional tracer records dispatch spans from the stamps the ledger
-already takes.  The ingest layer's hooks (``pending_windows``,
-``release_patient``, ``evict_patient``, ``reset``) close streams and free
-their state.  With a ``mesh_info``, each dispatch is sharded over the
-mesh's data axis (``repro_torch.distributed.make_fleet_batch_fn``), bit
-for bit the single-device dispatch.
+and an optional tracer records the engine's span tree (``obs/trace.py``):
+each ``ingest``, ``pump`` (``drain``), ``finalize_patient`` and
+``evict_patient`` call with the batch staging, the dispatch over the
+ledger's own stamps, and each window's tracker update inside it.  The
+ingest layer's hooks (``pending_windows``, ``release_patient``,
+``evict_patient``, ``reset``) close streams and free their state.  With
+a ``mesh_info``, each dispatch is sharded over the mesh's data axis
+(``repro_torch.distributed.make_fleet_batch_fn``), bit for bit the
+single-device dispatch.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from repro_torch.core.arith import fusion_cache_key
 from repro_torch.core.device import resolve_device
 from repro_torch.distributed.sharding import fleet_pad, make_fleet_batch_fn
 from repro_torch.obs import MetricsRegistry, bind_stream_engine
+from repro_torch.obs.trace import span, traced
 
 from .accounting import EnergyLedger, window_energy_nj
 from .pipelines import Pipeline
@@ -126,9 +130,11 @@ class StreamEngine:
         ``repro_torch.obs.MetricsRegistry``; ``None`` creates a private
         one, ``repro_torch.obs.NULL_METRICS`` turns the plane off).  The
         session, supervisor and server layers share it.  ``tracer`` (a
-        ``repro_torch.obs.Tracer``, default off) records per-window
-        lifecycle spans.  Both live on the host: they read the stamps the
-        ledger already takes and add no device synchronization.
+        ``repro_torch.obs.Tracer``, default off) records the engine's span
+        tree and per-window lifecycle spans; it is current
+        (``obs.trace.use``) inside the entry points, so the window cores
+        and the tracker record into it too.  Both live on the host: they
+        read host clocks only and add no device synchronization.
 
         The program-cache probes keep the reference's series names
         (``jit_programs_total``, ``jit_cache_hits_total``,
@@ -213,6 +219,7 @@ class StreamEngine:
         except KeyError:
             return (task, "?")  # unroutable: the error surfaces at pump()
 
+    @traced("stream", "stream.ingest")
     def ingest(self, patient: str, task: str, modality: str,
                chunk: np.ndarray) -> None:
         """Feed one in-order chunk; dispatches automatically once a full
@@ -229,6 +236,7 @@ class StreamEngine:
                 self.pump(include_partial=False)
 
     # -- dispatch -------------------------------------------------------------
+    @traced("stream", "stream.pump")
     def pump(self, include_partial: bool = True) -> int:
         """Dispatch pending windows now; returns the number processed.
 
@@ -347,14 +355,44 @@ class StreamEngine:
         if self.dp_size > 1:
             # every slab the same size; the extra rows are ordinary padding
             Bpad = fleet_pad(Bpad, self.dp_size)
-        stacks: Dict[str, np.ndarray] = {}
-        for m in pipe.spec.modalities:
-            stack = np.zeros((Bpad, m.channels, pipe.spec.window_samples(m)),
-                             np.float32)
-            for i, w in enumerate(windows):
-                stack[i] = w.arrays[m.name]
-            stacks[m.name] = stack
-        t0 = time.perf_counter()
+        with span("stream", "stream.stage", task=task, B=B, Bpad=Bpad):
+            stacks: Dict[str, np.ndarray] = {}
+            for m in pipe.spec.modalities:
+                stack = np.zeros((Bpad, m.channels,
+                                  pipe.spec.window_samples(m)), np.float32)
+                for i, w in enumerate(windows):
+                    stack[i] = w.arrays[m.name]
+                stacks[m.name] = stack
+        with span("dispatch", "stream.dispatch", task=task, fmt=fmt, B=B,
+                  Bpad=Bpad) as sp:
+            t0 = time.perf_counter()
+            outs, n_real, n_padded = self._score(task, fmt, stacks, B, Bpad)
+            dt = time.perf_counter() - t0
+            # the span is the ledger's latency_s, to the outputs' host copy
+            sp.at(t0, t0 + dt)
+        rows = [{k: v[i] for k, v in outs.items()} for i in range(B)]
+        n_esc, esc_nj = self._track(pipe, task, fmt, windows, rows)
+        self.ledger.record(task, fmt, n_real, n_padded, dt,
+                           pipe.ops_per_window,
+                           n_escalated=n_esc, escalation_extra_nj=esc_nj)
+        done = time.perf_counter()
+        tr = self.tracer
+        if tr is not None:
+            # host stamps only: ready_wall/t0 already exist for the ledger
+            for w in windows:
+                if w.ready_wall:
+                    tr.complete("stage", "ready->dispatch", w.ready_wall,
+                                t0, track=w.patient,
+                                args={"widx": w.widx, "task": task})
+        for w, row in zip(windows, rows):
+            self._append_result(WindowResult(
+                w.patient, task, w.widx, fmt, w.t0_s, row,
+                ready_wall=w.ready_wall, done_wall=done))
+
+    def _score(self, task: str, fmt: str, stacks: Dict[str, np.ndarray],
+               B: int, Bpad: int) -> Tuple[Dict[str, np.ndarray], int, int]:
+        """The staged batch to the device, through the pipeline's callable,
+        and its outputs back to the host: (outputs, real rows, padded)."""
         if self.dp_size > 1:
             mask = np.zeros((Bpad,), np.int32)
             mask[:B] = 1
@@ -367,38 +405,14 @@ class StreamEngine:
                 raise RuntimeError(
                     f"sharded dispatch accounted {n_real} real windows, "
                     f"host staged {B} (task={task!r}, fmt={fmt!r})")
-        else:
-            arrays = {k: torch.from_numpy(v).to(self.device)
-                      for k, v in stacks.items()}
-            # one device→host copy per output per batch; WindowResult rows
-            # are views into these arrays
-            outs = {k: v.cpu().numpy()
-                    for k, v in self._fn(task, fmt)(arrays).items()}
-            n_real, n_padded = B, Bpad - B
-        dt = time.perf_counter() - t0
-        rows = [{k: v[i] for k, v in outs.items()} for i in range(B)]
-        n_esc, esc_nj = self._track(pipe, task, fmt, windows, rows)
-        self.ledger.record(task, fmt, n_real, n_padded, dt,
-                           pipe.ops_per_window,
-                           n_escalated=n_esc, escalation_extra_nj=esc_nj)
-        done = time.perf_counter()
-        tr = self.tracer
-        if tr is not None:
-            # host stamps only: ready_wall/t0/done already exist for the
-            # ledger; tracing adds no clock read or sync on the device path
-            tr.complete("dispatch", f"{task}/{fmt}", t0, done,
-                        track="dispatch",
-                        args={"task": task, "fmt": fmt, "B": B,
-                              "Bpad": Bpad})
-            for w in windows:
-                if w.ready_wall:
-                    tr.complete("stage", "ready->dispatch", w.ready_wall,
-                                t0, track=w.patient,
-                                args={"widx": w.widx, "task": task})
-        for w, row in zip(windows, rows):
-            self._append_result(WindowResult(
-                w.patient, task, w.widx, fmt, w.t0_s, row,
-                ready_wall=w.ready_wall, done_wall=done))
+            return outs, n_real, n_padded
+        arrays = {k: torch.from_numpy(v).to(self.device)
+                  for k, v in stacks.items()}
+        # one device→host copy per output per batch; WindowResult rows are
+        # views into these arrays
+        outs = {k: v.cpu().numpy()
+                for k, v in self._fn(task, fmt)(arrays).items()}
+        return outs, B, Bpad - B
 
     def _append_result(self, r: WindowResult) -> None:
         """Retain one result, dropping the oldest past ``result_capacity``."""
@@ -425,28 +439,31 @@ class StreamEngine:
         base_fmts: Dict[str, str] = {}
         extra_by_base: Dict[str, float] = {}
         for w, row in zip(windows, rows):
-            key = (w.patient, task)
-            tr = self._trackers.get(key)
-            if tr is None:
-                tr = self._trackers[key] = pipe.make_tracker(w.patient,
-                                                             self.device)
-            upd = tr.update(w.widx, row, fmt)
-            row["peaks"] = upd.new_peaks
-            base_fmt = base_fmts.get(w.patient)
-            if base_fmt is None:
-                base_fmt = base_fmts[w.patient] = \
-                    self.router.base_route(w.patient, task).fmt
-            if fmt != base_fmt:
-                extra = extra_by_base.get(base_fmt)
-                if extra is None:
-                    extra = extra_by_base[base_fmt] = (
-                        window_energy_nj(pipe.ops_per_window, fmt)
-                        - window_energy_nj(pipe.ops_per_window, base_fmt))
-                n_esc += 1
-                esc_nj += extra
-                self.ledger.record_escalation(w.patient, extra)
-            self.router.observe(w.patient, task, upd.boundary_gap,
-                                upd.mid_refractory)
+            with span("stream", "stream.track", patient=w.patient,
+                      widx=w.widx, fmt=fmt):
+                key = (w.patient, task)
+                tr = self._trackers.get(key)
+                if tr is None:
+                    tr = self._trackers[key] = pipe.make_tracker(
+                        w.patient, self.device)
+                upd = tr.update(w.widx, row, fmt)
+                row["peaks"] = upd.new_peaks
+                base_fmt = base_fmts.get(w.patient)
+                if base_fmt is None:
+                    base_fmt = base_fmts[w.patient] = \
+                        self.router.base_route(w.patient, task).fmt
+                if fmt != base_fmt:
+                    extra = extra_by_base.get(base_fmt)
+                    if extra is None:
+                        extra = extra_by_base[base_fmt] = (
+                            window_energy_nj(pipe.ops_per_window, fmt)
+                            - window_energy_nj(pipe.ops_per_window,
+                                               base_fmt))
+                    n_esc += 1
+                    esc_nj += extra
+                    self.ledger.record_escalation(w.patient, extra)
+                self.router.observe(w.patient, task, upd.boundary_gap,
+                                    upd.mid_refractory)
         return n_esc, esc_nj
 
     # -- stateful trackers ----------------------------------------------------
@@ -454,6 +471,7 @@ class StreamEngine:
         """The per-patient tracker (None until its first window dispatches)."""
         return self._trackers.get((patient, task))
 
+    @traced("stream", "stream.finalize")
     def finalize_patient(self, patient: str, task: str) -> np.ndarray:
         """End-of-stream flush for one tracked stream; returns its tail
         peaks."""
@@ -478,6 +496,7 @@ class StreamEngine:
         disp = self._dispatchers.pop(key, None)
         return disp.staged_cost() if disp is not None else (0, 0)
 
+    @traced("stream", "stream.evict")
     def evict_patient(self, patient: str, task: str) -> Dict[str, int]:
         """Close one stream — clean BYE or stall eviction: dispatch its
         complete pending windows (so the delivered prefix is fully scored),

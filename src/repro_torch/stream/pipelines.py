@@ -23,6 +23,7 @@ from repro_torch.apps.forest import Forest
 from repro_torch.core.arith import Arith, fusion_cache_key
 from repro_torch.data.biosignals import AUDIO_SR, ECG_FS, IMU_SR, WINDOW_S
 from repro_torch.energy.model import OpCounts
+from repro_torch.obs.trace import span
 
 from .accounting import cough_window_op_counts, rpeak_window_op_counts
 from .ring import ModalitySpec, WindowSpec
@@ -90,7 +91,8 @@ def _rpeak_batch_fn(fmt: str, peak_threshold: float, refr: int,
     ar = Arith.make(fmt)
 
     def fn(arrays: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        norm = rpeak_window_scores(ar, arrays["ecg"][:, 0, :])   # (B, n)
+        with span("core", "rpeak.scores"):
+            norm = rpeak_window_scores(ar, arrays["ecg"][:, 0, :])  # (B, n)
         # candidate count: above threshold AND the maximum within the
         # ±refractory neighbourhood (≥ towards the past, > towards the
         # future — the offline detector's tie-break).  A cheap per-window

@@ -487,7 +487,8 @@ def test_serving_metrics_reconcile_with_token_ledger():
     assert programs.value(site="serve.prefill", lane=eng.policy.lane) == 2
     assert eng.metrics.counter("jit_cache_hits_total").total() == 1
     names = {e["name"] for e in validate_chrome_trace(tracer.chrome_trace())}
-    assert {"admit", "prefill", "decode", "retire"} <= names
+    assert {"serve.step", "serve.admit", "serve.prefill", "serve.decode",
+            "serve.account", "serve.retire"} <= names
 
 
 def test_bound_engines_are_freed_without_a_collection():
