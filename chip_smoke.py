@@ -25,15 +25,19 @@ Phases, each fatal on failure:
      FFTs of 4096 and 256 points in posit10 and posit8 (two passes, odd
      batches) and in f64, and equal to the earlier route it replaced; the
      multiply-add at every element offset within 16 bytes and under row,
-     column and host 0-d broadcasts, in f32 and f64;
+     column and host 0-d broadcasts, in f32 and f64; the R-peak tracker's
+     2-means (``posit_kmeans_1d``, one launch a call) bitwise its plain
+     version, the per-op path, on full 500-score reservoirs in posit10 and
+     posit16, cold and warm started;
   3. the stream path: a 64-patient fleet (32 cough patients at posit16
      with every fourth pinned to fp16, 32 ECG patients at posit10 with
      every fourth pinned to posit8)
      streamed in ragged chunks through ``StreamEngine``, with every window
      scored exactly once, every stream kernel's launch count above zero
-     (the round's equal to the reference design's 8221, the rounded
-     matmul's to its 12 calls, the FFT stage range's to 3, one per posit16
-     cough batch, and no butterfly launch),
+     (the round's equal to the window cores' 285, the rounded matmul's
+     to its 12 calls, the FFT stage range's to 3, one per posit16 cough
+     batch, the trackers' 2-means's to 128, one per tracked ECG window,
+     and no butterfly launch),
      and the outputs checked against the same windows run by the port on
      the CPU; then the same fleet once more under ``torch.profiler`` for
      the device's busy share, its device kernels and its top kernels, and
@@ -246,7 +250,11 @@ L2_BYTES = 50 * 2 ** 20        # H100 SXM L2 cache
 COLD_BYTES = 4 * L2_BYTES      # distinct input bytes a timed call reads, so
                                # that it reads them from device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
-FLEET_ROUND_LAUNCHES = 8221    # the 64-patient fleet's posit_round launches
+FLEET_ROUND_LAUNCHES = 285     # the 64-patient fleet's posit_round launches
+                               # (its window cores; the trackers' 2-means
+                               # round inside posit_kmeans_1d)
+FLEET_KMEANS_LAUNCHES = 128    # ... and its posit_kmeans_1d launches (one
+                               # per tracked ECG window, 32 patients x 4)
 FLEET_MATMUL_ROUND_CALLS = 12  # ... and its posit_matmul_round calls
 FLEET_FFT_STAGE_LAUNCHES = 3   # ... and its posit_fft_stages launches (one
                                # per posit16 cough batch of 32 windows)
@@ -291,21 +299,21 @@ SHARD_MAX_BATCH = 30           # phase 9a: fleet_pad(30, 4) = 32 rows
 # (cough posit16 96 windows and ECG posit10 96 in 3 batches of 30 and one
 # of 6 each, ECG posit8 32 in 30 + 2; fp16 launches none), from phase 3's
 # counts: the window functions round 404 times over the fleet's 10 posit
-# batches at cap 30 and 285 over its 7 at cap 32, the trackers 7936 times
-# at either cap (a CPU rehearsal under the kernel backend, counting the
-# round's calls with phase 2's plan caches built); the sharded engine runs
-# each batch's window functions once a slab, and a slab's 16 FFTs take the
-# stage range in two passes where a batch's 60 take one (fft_pass_plan
-# cuts a pass that would leave SMs idle)
+# batches at cap 30 and 285 over its 7 at cap 32, the trackers' 2-means
+# launch 128 times at either cap (a CPU rehearsal under the kernel
+# backend, counting the round's calls with phase 2's plan caches built);
+# the sharded engine runs each batch's window functions once a slab, and a
+# slab's 16 FFTs take the stage range in two passes where a batch's 60
+# take one (fft_pass_plan cuts a pass that would leave SMs idle)
 SHARD_BATCH_ROUNDS = 404
 SHARD_PLAIN_LAUNCHES = {
-    "posit_round": FLEET_ROUND_LAUNCHES + SHARD_BATCH_ROUNDS - 285,
-    "posit_fft_stages": 4, "posit_matmul_round": 16}
+    "posit_round": SHARD_BATCH_ROUNDS, "posit_fft_stages": 4,
+    "posit_matmul_round": 16, "posit_kmeans_1d": FLEET_KMEANS_LAUNCHES}
 SHARD_LAUNCHES = {
-    "posit_round": SHARD_PLAIN_LAUNCHES["posit_round"]
-    + (SHARD_SLABS - 1) * SHARD_BATCH_ROUNDS,
+    "posit_round": SHARD_SLABS * SHARD_BATCH_ROUNDS,
     "posit_fft_stages": SHARD_SLABS * 4 * 2,
-    "posit_matmul_round": SHARD_SLABS * 16}
+    "posit_matmul_round": SHARD_SLABS * 16,
+    "posit_kmeans_1d": FLEET_KMEANS_LAUNCHES}
 # phase 9b: qwen3-8b's layer-0 weights at full width, f32 on the card
 CKPT_LEAVES = (("wq", (4096, 4096)), ("wk", (4096, 1024)),
                ("wv", (4096, 1024)), ("wo", (4096, 4096)),
@@ -3394,6 +3402,108 @@ def host_us(fn, calls: int = 10000) -> float:
     return (t1 - t0) / calls * 1e6
 
 
+def check_kmeans(dev, reservoirs: int = 16):
+    """The tracker's 2-means at the main path's shape (``reservoirs``
+    seeded reservoirs of 500 of the tracker's scores, posit10 and posit16,
+    cold and warm started, 12 iterations): ``kmeans_1d``'s one
+    ``posit_kmeans_1d`` launch bitwise its plain version, the per-op path
+    (fused off), on the same card tensor; fails on any differing bit."""
+    import numpy as np
+    import torch
+    from repro_torch.apps.bayeslope import KMEANS_ITERS, RESERVOIR_SIZE
+    from repro_torch.apps.kmeans import kmeans_1d
+    from repro_torch.core.arith import Arith, backend_overrides
+    from repro_torch.kernels.counts import launch_counts
+    rng = np.random.default_rng(SEED + 12)
+    calls = parted = 0
+    before = launch_counts()["posit_kmeans_1d"]
+    for name in ("posit10", "posit16"):
+        ar = Arith.make(name)
+        for r in range(reservoirs):
+            res = rng.uniform(0.2689, 1.0, RESERVOIR_SIZE)
+            res[rng.random(RESERVOIR_SIZE) < 0.1] = 0.0
+            x = torch.from_numpy(res.astype(np.float32)).to(dev)
+            for init in (None, np.sort(rng.uniform(0.2689, 1.0, 2))
+                         .astype(np.float32)):
+                got = kmeans_1d(ar, x, iters=KMEANS_ITERS, init=init)
+                with backend_overrides(fused="off"):
+                    want = kmeans_1d(ar, x, iters=KMEANS_ITERS, init=init)
+                g = got.cpu().view(torch.int32)
+                w = want.cpu().view(torch.int32)
+                calls += 1
+                parted += int((g != w).sum())
+    launches = launch_counts()["posit_kmeans_1d"] - before
+    log(f"  posit_kmeans_1d: {calls} 2-means of {RESERVOIR_SIZE} scores "
+        f"(posit10, posit16; cold, warm; {KMEANS_ITERS} iterations) in "
+        f"{launches} launches, {parted} centroids differ from the per-op "
+        f"path")
+    if launches != calls:
+        raise AssertionError(f"posit_kmeans_1d: {launches} launches for "
+                             f"{calls} calls")
+    if parted:
+        raise AssertionError(f"posit_kmeans_1d: {parted} centroids not "
+                             f"bitwise the per-op path's")
+
+
+def time_kmeans(dev, updates: int = 2000):
+    """The R-peak tracker's 2-means at a full reservoir (500 posit10
+    scores, warm-started) through ``kmeans_1d``: its one ``posit_kmeans_1d``
+    launch beside the per-op path (fused off), each per call (CUDA events,
+    the reservoir on the card), on the device (every kernel, copy and fill
+    of a profiled window) with device kernels and wrapper launches a call,
+    and a whole tracker update (``threshold_update``: the reservoir's copy
+    in, the 2-means, the centroids' copy out) on the host clock over
+    ``updates`` calls.  Returns the kernel's row, its plain version the
+    per-op path, logged beside the JSON line's."""
+    import numpy as np
+    import torch
+    from repro_torch.apps.bayeslope import RESERVOIR_SIZE, threshold_update
+    from repro_torch.apps.kmeans import kmeans_1d
+    from repro_torch.core.arith import Arith, backend_overrides
+    from repro_torch.kernels.counts import launch_counts
+    ar = Arith.make("posit10")
+    rng = np.random.default_rng(SEED + 11)
+    res = rng.uniform(0.2689, 1.0, RESERVOIR_SIZE).astype(np.float32)
+    init = np.array([0.35, 0.9], np.float32)
+    x = torch.from_numpy(res).to(dev)
+    arms = {}
+    for arm, fused in (("kernel", "on"), ("per-op", "off")):
+        with backend_overrides(fused=fused):
+            def fn():
+                return kmeans_1d(ar, x, init=init)
+            fn()
+            torch.cuda.synchronize()
+            before = launch_counts()
+            fn()
+            after = launch_counts()
+            dev_ms, kernels = device_kernels(fn)
+            for _ in range(20):
+                threshold_update(ar, res, init=init, device=dev)
+            t0 = time.perf_counter()
+            for _ in range(updates):
+                threshold_update(ar, res, init=init, device=dev)
+            arms[arm] = dict(
+                ms=cuda_ms(fn), device_ms=dev_ms, device_kernels=kernels,
+                launches={k: after[k] - before[k] for k in after
+                          if after[k] != before[k]},
+                update_ms=(time.perf_counter() - t0) / updates * 1e3)
+        log(f"  kmeans_1d {arm} [{RESERVOIR_SIZE}, posit10, warm]: "
+            f"{arms[arm]['ms']:.4f} ms per call, {dev_ms:.4f} ms and "
+            f"{kernels:g} device kernels (copies and fills included) on the "
+            f"device, launches {arms[arm]['launches']}; a tracker update "
+            f"{arms[arm]['update_ms']:.4f} ms on the host clock")
+    row = dict(
+        name="posit_kmeans_1d", shape=[RESERVOIR_SIZE, "posit10", "warm"],
+        ms=arms["kernel"]["ms"],
+        device_ms=device_ms(lambda: kmeans_1d(ar, x, init=init),
+                            "posit_kmeans_1d_kernel"),
+        device_kernels=arms["kernel"]["device_kernels"],
+        plain_ms=arms["per-op"]["ms"],
+        bound_ms=(RESERVOIR_SIZE + 2) * 4 / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=None, arms=arms)
+    return row
+
+
 def time_round_host(dev, report):
     """B1 at the fleet's shapes, (32, 2, 4096) and a 0-d f32 (the 2-means'
     scalars, the most launched), beside an empty kernel's bare launch: per
@@ -3793,7 +3903,8 @@ def check_ingest(run, dev, card):
         if n:
             raise AssertionError(f"{name} ran {n} times on CUDA tensors")
     launches = run["launches"]
-    for name in ("posit_round", "posit_fft_stages", "posit_matmul_round"):
+    for name in ("posit_round", "posit_fft_stages", "posit_matmul_round",
+                 "posit_kmeans_1d"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the TCP run")
     if launches["posit_butterfly"] != 0:
@@ -3888,6 +3999,7 @@ def check_ingest(run, dev, card):
     log(f"  transport: {fleet}")
     stream = {k: launches[k] for k in ("posit_round", "posit_fft_stages",
                                        "posit_matmul_round",
+                                       "posit_kmeans_1d",
                                        "posit_butterfly")}
     log(f"  launches on the TCP run: {stream}; plain versions on CUDA "
         f"tensors: 0; /metrics "
@@ -4007,7 +4119,8 @@ def run_pool(dev, forest, card):
     if bad or set(doc["digests"]) != set(want):
         raise AssertionError(f"chaos pool: digests differ from the "
                              f"in-process card run for {bad}")
-    check_pool_kernel_calls(doc, ("posit_round",), "chaos pool")
+    check_pool_kernel_calls(doc, ("posit_round", "posit_kmeans_1d"),
+                            "chaos pool")
     log(f"  chaos pool: {doc['windows']} windows through {POOL_WORKERS} "
         f"workers on the card, worker 0 SIGKILLed 0.4 s after its ready, "
         f"{ecg[-1]} partitioned, {ecg[-2]} corrupted: every digest equal "
@@ -4048,7 +4161,8 @@ def run_pool(dev, forest, card):
         for w in doc["workers"]:
             stream = {k: w["kernel_calls"][k]
                       for k in ("posit_round", "posit_fft_stages",
-                                "posit_matmul_round", "posit_butterfly")}
+                                "posit_matmul_round", "posit_kmeans_1d",
+                                "posit_butterfly")}
             log(f"  worker {w['worker_id']}: {w['windows']} windows, "
                 f"launches {stream}, no plain version on a CUDA tensor "
                 f"(refused there)")
@@ -4078,7 +4192,8 @@ def check_pool_fleet(doc, summary, want, what):
         raise AssertionError(f"{what}: digests differ from the in-process "
                              f"card run for {bad}")
     check_pool_kernel_calls(doc, ("posit_round", "posit_fft_stages",
-                                  "posit_matmul_round"), what)
+                                  "posit_matmul_round", "posit_kmeans_1d"),
+                            what)
 
 
 # ---------------------------------------------------------------------------
@@ -4094,7 +4209,8 @@ def run_sharded_fleet(dev, forest, counters, card):
     import numpy as np
     from repro_torch.kernels.counts import PlainCalls
     from repro_torch.launch.mesh import split_mesh_info
-    names = ("posit_round", "posit_fft_stages", "posit_matmul_round")
+    names = ("posit_round", "posit_fft_stages", "posit_matmul_round",
+             "posit_kmeans_1d")
     runs = {}
     for name, kw in (("plain", {}), ("sharded", {
             "mesh_info": split_mesh_info(dev, SHARD_SLABS)})):
@@ -5035,7 +5151,7 @@ def main() -> int:
     log(f"  built {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name in ("posit_codec", "posit_round", "posit_fft", "posit_matmul",
-                 "posit_kv_attention"):
+                 "posit_kv_attention", "posit_kmeans"):
         text = build.BUILD_LOGS.get(name)
         if text is None:
             log(f"  nvcc -Xptxas -v {name}.cu: built before this run, no "
@@ -5105,6 +5221,7 @@ def main() -> int:
     check_moe_kernels(dev, report)
     check_api_kernels(dev, report)
     check_format_kernels(dev, report)
+    check_kmeans(dev)
 
     phase("phase 3: stream path, 64-patient fleet")
     t0 = time.perf_counter()
@@ -5113,11 +5230,17 @@ def main() -> int:
     engine, records, pins, wall, launches = run_main_path(dev, forest,
                                                           counters)
     check_main_path(engine, records, pins, forest, wall,
-                    {k: launches[k] for k in stream_kernels})
+                    {k: launches[k] for k in (*stream_kernels,
+                                              "posit_kmeans_1d")})
     if launches["posit_round"] != FLEET_ROUND_LAUNCHES:
         raise AssertionError(f"posit_round launched {launches['posit_round']}"
-                             f" times on the fleet, not the reference "
-                             f"design's {FLEET_ROUND_LAUNCHES}")
+                             f" times on the fleet, not the window cores' "
+                             f"{FLEET_ROUND_LAUNCHES}")
+    if launches["posit_kmeans_1d"] != FLEET_KMEANS_LAUNCHES:
+        raise AssertionError(f"posit_kmeans_1d launched "
+                             f"{launches['posit_kmeans_1d']} times on the "
+                             f"fleet, not one per tracked window "
+                             f"({FLEET_KMEANS_LAUNCHES})")
     if launches["posit_matmul_round"] != FLEET_MATMUL_ROUND_CALLS:
         raise AssertionError(f"posit_matmul_round launched "
                              f"{launches['posit_matmul_round']} times on the"
@@ -5142,6 +5265,7 @@ def main() -> int:
     extra = time_kernels(dev, shapes, report)
     extra += time_fft_stages(dev, report)
     extra += time_round_host(dev, report)
+    extra.append(time_kmeans(dev))
     extra += time_format_kernels(dev, report)
     extra += time_serve_kernels(dev, report)
     extra += time_api_kernels(dev)

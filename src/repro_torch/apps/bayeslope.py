@@ -26,9 +26,9 @@ import torch
 from repro_torch.core.arith import Arith
 from repro_torch.core.device import resolve_device
 from repro_torch.data.biosignals import ECG_FS, ecg_dataset
-from repro_torch.obs.trace import span
+from repro_torch.obs.trace import current, span
 
-from .kmeans import kmeans_1d
+from .kmeans import kmeans_1d, kmeans_route
 from .metrics import rpeak_f1
 
 # Canonical fold/stream window (the streaming runtime's R-peak hop grid).
@@ -110,12 +110,13 @@ def threshold_update(ar: Arith, reservoir: np.ndarray,
     ``init`` warm-starts the centroids from the previous window's solution.
     Returns (thr, centroids): thr = 0.3·low + 0.7·high (weighted toward the
     R cluster), NaN when the arithmetic collapsed.  The 2-means runs on
-    ``device`` (default: the card).
+    ``device`` (default: the card); ``init`` stays on the host, from where
+    the one-launch route passes it to its kernel by value.
     """
     dev = resolve_device(device)
     x = torch.as_tensor(reservoir, dtype=torch.float32, device=dev)
     if init is not None:
-        init = torch.as_tensor(init, dtype=torch.float32, device=dev)
+        init = np.asarray(init, np.float32)
     cents = kmeans_1d(ar, x, k=2, iters=KMEANS_ITERS,
                       init=init).cpu().numpy().astype(np.float32)
     c = np.sort(np.asarray(cents, np.float64))
@@ -259,7 +260,10 @@ class RPeakFold:
             self.reservoir = reservoir_update(
                 self.reservoir, s, self.reservoir_size,
                 self.reservoir_stride)
-            with span("stream", "rpeak.threshold", iters=KMEANS_ITERS):
+            args = {"iters": KMEANS_ITERS}
+            if current() is not None:       # the route, read when traced
+                args["route"] = kmeans_route(ar, self.device)
+            with span("stream", "rpeak.threshold", **args):
                 self.thr, cents = threshold_update(ar, self.reservoir,
                                                    init=self.cents,
                                                    device=self.device)

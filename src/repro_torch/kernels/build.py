@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNEL_SOURCES = ("posit_round", "posit_matmul", "posit_codec",
-                  "posit_kv_attention", "posit_fft")
+                  "posit_kv_attention", "posit_fft", "posit_kmeans")
 HEADERS = ("posit_math.cuh", "posit_decode.cuh")
 # -fmad=false: the rounding chain rounds each product on its own; a
 # contracted a*b+c would round once and change the bits.  -Xptxas -v: each

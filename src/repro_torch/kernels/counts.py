@@ -21,12 +21,14 @@ def wrappers():
     """The kernel wrappers, each with its ``launches`` counter."""
     from .posit_codec import posit_decode, posit_encode, posit_kv_append
     from .posit_fft import posit_fft_stages
+    from .posit_kmeans import posit_kmeans_1d
     from .posit_kv_attention import posit_kv_attention
     from .posit_matmul import posit_matmul, posit_matmul_round
     from .posit_round import posit_butterfly, posit_fma_round, posit_round
     return (posit_round, posit_butterfly, posit_fft_stages,
             posit_matmul_round, posit_decode, posit_encode, posit_kv_append,
-            posit_kv_attention, posit_fma_round, posit_matmul)
+            posit_kv_attention, posit_fma_round, posit_matmul,
+            posit_kmeans_1d)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -23,7 +23,9 @@ for a plan (shapes only: nothing is allocated), or on the card — under
   (at the sites ``PlainCalls`` patches) is replaced by a recorder: on a
   CUDA tensor it calls the real wrapper, elsewhere the plain version (on
   ``meta`` that gives the output shapes), with the inner ops uncounted;
-  either way it records the one op.  B3 (``posit_matmul_round``) and B7
+  either way it records the one op.  A wrapper with no plain version of
+  its own (``posit_kmeans_1d``: off the card its caller runs the per-op
+  path instead) is recorded as itself.  B3 (``posit_matmul_round``) and B7
   (``posit_matmul``) add 2·M·N·K FLOPs and B6 (``posit_kv_attention``)
   4·rows·S·D, as PERF.md's bound column reckons them (B3's and B6's as
   f32 FLOPs, B7's on the bf16 tensor cores); the KV append
@@ -355,7 +357,8 @@ class KernelRecorders:
             self._saved.append((mod, n, real))
             setattr(mod, n, rec)
         for w in wrappers():
-            plain = getattr(sys.modules[w.__module__], w.__name__ + "_torch")
+            plain = getattr(sys.modules[w.__module__], w.__name__ + "_torch",
+                            w)
             patch_everywhere(self._saved, w,
                              _Recorder(self.stats, w.__name__, w, plain))
         return self

@@ -32,7 +32,11 @@ in-process run; ``fake_quant`` on a CUDA tensor through the round kernel
 caught by ``PlainCalls(TRAIN_PLAIN)`` and ``refuse_plain_on_card``, and
 one posit16 QAT train step of reduced gemma2-2b (one round launch per
 rounded leaf, the loss near the CPU's), whose FLOPs, bytes and kernel ops
-the dry run's counter reads the same on the card as on ``meta``.
+the dry run's counter reads the same on the card as on ``meta``; the
+R-peak tracker's 2-means as one ``posit_kmeans_1d`` launch a call, bitwise
+its plain version, the per-op path, on 10^4 seeded reservoirs wherever the
+sum's order cannot decide a rounding, and on every reservoir of a recorded
+``fleet-backlog`` pass.
 """
 import numpy as np
 import pytest
@@ -973,6 +977,7 @@ def test_worker_pool_on_the_card_equals_inproc(dev, tmp_path):
     assert doc["digests"] == run["want"]
     for w in doc["workers"]:
         assert w["kernel_calls"]["posit_round"] > 0
+        assert w["kernel_calls"]["posit_kmeans_1d"] > 0
 
 
 def test_refuse_plain_on_card_raises_on_a_cuda_tensor(dev, monkeypatch):
@@ -1113,3 +1118,181 @@ def test_a_train_steps_count_on_the_card_equals_its_meta_trace(dev):
     assert card["launches"] == card["kernel_ops"]["posit_round"] > 0
     assert meta["launches"] == 0
     assert card["arg_bytes_per_device"] == meta["arg_bytes_per_device"]
+
+
+# ---------------------------------------------------------------------------
+# The R-peak tracker's 2-means in one launch (posit_kmeans_1d)
+# ---------------------------------------------------------------------------
+
+KMEANS_POSITS = ("posit8", "posit10", "posit16")
+
+
+def _kmeans_reservoir(s: int):
+    """Seed ``s``'s reservoir: three in four the tracker's scores (the
+    logistic's [0.27, 1], sanitized zeros), the rest spanning many binades
+    (uniform on [0, 1) or log-normal), where an f32 sum can be inexact; a
+    posit format, a length of 1-500 and a cold or warm start."""
+    rng = np.random.default_rng(s)
+    n = int(rng.integers(1, 501))
+    kind = "scores" if s % 4 else ("uniform" if s % 8 else "lognormal")
+    if kind == "scores":
+        x = rng.uniform(0.2689, 1.0, n)
+        x[rng.random(n) < 0.1] = 0.0
+    elif kind == "uniform":
+        x = rng.uniform(0.0, 1.0, n)
+    else:
+        x = rng.lognormal(-2.0, 2.0, n)
+    init = None if (s // 3) % 2 else np.sort(
+        rng.uniform(0.2689, 1.0, 2)).astype(np.float32)
+    return (Arith.make(KMEANS_POSITS[s % 3]), kind, x.astype(np.float32),
+            init)
+
+
+def _kmeans_parting(ar, x, init, iters=12):
+    """Where the kernel parts from the per-op path: the first iteration
+    that differs and, for each centroid that differs there, both f32 sums
+    of its contributions from the shared centroids before it (the per-op
+    path's ``torch.sum`` and the kernel's order) and whether each rounds
+    to its side's result."""
+    from test_torch_kmeans_kernel import kernel_order_sum
+
+    from repro_torch.apps.kmeans import kmeans_1d
+    from repro_torch.core.posit import round_posit_math
+
+    def ops(it):
+        with backend_overrides(fused="off"):
+            return kmeans_1d(ar, x, iters=it, init=init)
+
+    for it in range(iters + 1):
+        want, got = ops(it), kmeans_1d(ar, x, iters=it, init=init)
+        if not _equal_bits(want.cpu(), got.cpu()):
+            break
+    else:
+        return None
+    prev = ops(it - 1)
+
+    def rnd(v):
+        return round_posit_math(v, ar.fmt)
+    xr = rnd(x)
+    member = torch.argmin(torch.abs(rnd(xr[:, None] - prev[None, :])),
+                          dim=1)[:, None] == torch.arange(2, device=x.device)
+    cnt = torch.clamp(member.sum(dim=0), min=1).to(torch.float32)
+    contrib = rnd(torch.where(member, xr[:, None],
+                              torch.zeros((), device=x.device)) / cnt)
+    tree = kernel_order_sum(contrib)
+    parts = []
+    for j in range(2):
+        if not _equal_bits(want[j:j + 1].cpu(), got[j:j + 1].cpu()):
+            wide = torch.sum(contrib[:, j].contiguous())
+            parts.append(dict(
+                iteration=it, centroid=j, torch_sum=float(wide),
+                kernel_sum=float(tree[j]), per_op=float(want[j]),
+                kernel=float(got[j]),
+                explained=bool(float(wide) != float(tree[j])
+                               and _equal_bits(rnd(wide).cpu(),
+                                               want[j].cpu())
+                               and _equal_bits(rnd(tree[j]).cpu(),
+                                               got[j].cpu()))))
+    return parts
+
+
+def test_kmeans_kernel_is_one_launch_a_call(dev):
+    """``kmeans_1d`` on an f32 CUDA tensor in a posit format: one
+    ``posit_kmeans_1d`` launch a call (``launch_counts``) and one device
+    kernel, cold or warm; the per-op path (fused off) still reachable, 62
+    round launches a call, and equal to it here."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.apps.kmeans import kmeans_1d
+    from repro_torch.kernels.counts import launch_counts
+    ar = Arith.make("posit10")
+    g = torch.Generator().manual_seed(3)
+    x = (0.27 + 0.73 * torch.rand(500, generator=g)).to(dev)
+    init = np.array([0.3, 0.8], np.float32)
+    kmeans_1d(ar, x)                                # builds the kernel
+    torch.cuda.synchronize(dev)
+    before = launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cold = kmeans_1d(ar, x)
+        warm = kmeans_1d(ar, x, init=init)
+        torch.cuda.synchronize(dev)
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"posit_kmeans_1d": 2}
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    assert len(kernels) == 2 and all("posit_kmeans_1d_kernel" in k
+                                     for k in kernels), kernels
+    with backend_overrides(fused="off"):
+        n = launch_counts()["posit_round"]
+        ops_cold = kmeans_1d(ar, x)
+        ops_warm = kmeans_1d(ar, x, init=torch.from_numpy(init).to(dev))
+        assert launch_counts()["posit_round"] - n == 2 * 62
+    assert _equal_bits(cold.cpu(), ops_cold.cpu())
+    assert _equal_bits(warm.cpu(), ops_warm.cpu())
+
+
+def test_kmeans_kernel_over_seeded_reservoirs(dev):
+    """10^4 seeded reservoirs (``_kmeans_reservoir``): against the per-op
+    path, no centroid differs on the tracker's scores, and every one that
+    differs elsewhere is a sum whose two orders' f32 values round apart
+    (each printed with its sums)."""
+    from repro_torch.apps.kmeans import kmeans_1d
+    cases, parted = {}, []
+    for s in range(10_000):
+        ar, kind, x, init = _kmeans_reservoir(s)
+        xd = torch.from_numpy(x).to(dev)
+        got = kmeans_1d(ar, xd, init=init).cpu()
+        with backend_overrides(fused="off"):
+            want = kmeans_1d(ar, xd, init=init).cpu()
+        cases[kind] = cases.get(kind, 0) + 1
+        if not _equal_bits(got, want):
+            parts = _kmeans_parting(ar, xd, init)
+            parted.append(dict(seed=s, fmt=ar.name, kind=kind, n=len(x),
+                               warm=init is not None, parts=parts))
+    print(f"posit_kmeans_1d over {sum(cases.values())} seeded reservoirs "
+          f"{cases}: {len(parted)} differ from the per-op path")
+    for p in parted:
+        print("  parted:", p)
+    assert not [p for p in parted if p["kind"] == "scores"]
+    assert all(p["parts"] and all(q["explained"] for q in p["parts"])
+               for p in parted)
+
+
+def test_kmeans_kernel_equals_per_op_over_a_fleet_backlog_pass(
+        dev, monkeypatch):
+    """Every 2-means of one pass of the ``fleet-backlog`` cell (its warm
+    pass at set-up, recorded): the kernel's centroids bitwise the per-op
+    path's from the same reservoir and warm start, one launch each."""
+    from portbench.lib import harness
+    from repro_torch.apps import bayeslope
+    from repro_torch.apps.kmeans import kmeans_1d
+    from repro_torch.kernels.posit_kmeans import posit_kmeans_1d
+    cell = harness.Cell("fleet-backlog", harness.benchmark())
+    run = cell.driver().Run(cell, 2 ** 33 + 29, dev)
+    recs = []
+    real = bayeslope.threshold_update
+
+    def record(ar, reservoir, init=None, device=None):
+        thr, cents = real(ar, reservoir, init=init, device=device)
+        recs.append((ar, np.array(reservoir, np.float32),
+                     None if init is None else np.array(init, np.float32),
+                     cents))
+        return thr, cents
+    monkeypatch.setattr(bayeslope, "threshold_update", record)
+    launches = posit_kmeans_1d.launches
+    run.setup()
+    monkeypatch.undo()
+    assert len(recs) == posit_kmeans_1d.launches - launches > 0
+    by_fmt, parted = {}, []
+    for ar, reservoir, init, cents in recs:
+        by_fmt[ar.name] = by_fmt.get(ar.name, 0) + 1
+        with backend_overrides(fused="off"):
+            want = kmeans_1d(ar, torch.from_numpy(reservoir).to(dev),
+                             init=init).cpu().numpy()
+        if want.tobytes() != np.asarray(cents, np.float32).tobytes():
+            parted.append((ar.name, len(reservoir), init, want, cents))
+    print(f"fleet-backlog pass: {len(recs)} 2-means {by_fmt}, "
+          f"{len(parted)} differ from the per-op path")
+    assert parted == []

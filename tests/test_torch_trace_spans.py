@@ -183,6 +183,8 @@ def test_stream_engine_span_tree_nests_and_matches_the_ledger(forest):
     assert sorted((ev[6]["patient"], ev[6]["widx"]) for ev in track) == \
         sorted((r.patient, r.widx) for r in rpeak)
     assert {ev[6]["iters"] for ev in by_name["rpeak.threshold"]} == {12}
+    # the CPU takes the 2-means's per-op path (the card its kernel)
+    assert {ev[6]["route"] for ev in by_name["rpeak.threshold"]} == {"ops"}
     # the dispatch ends before its windows are tracked, and a result's
     # done_wall comes after its window's tracking
     disp = sorted((ev[3], ev[4]) for ev in by_name["stream.dispatch"])
